@@ -7,17 +7,18 @@ through each available path:
 
   csr         XLA gather + segment-sum (the honest generic fallback)
   ell         XLA fixed-width row gather
-  rcm_f32     RCM-reordered sparse-tile Pallas kernel, f32 tiles
-  rcm_bf16    same, bf16 tile storage (f32 compute/accumulate in-kernel)
+  rcm_f32     RCM-reordered sparse-tile operator, f32 tiles
+  rcm_bf16    same, bf16 tile storage (f32 compute/accumulate)
 
 Problems span the density axis: Delaunay mesh (deg ~7), random geometric
 graphs at deg 10/20/40, and a no-locality uniform random graph (the case
 tiling CANNOT help — documented, not hidden). Each line reports the tile
-fill so the fill -> Gnnz/s relation is explicit; padded-tile HBM traffic
-is the model (throughput ~= fill x tile-load bandwidth, ops/spmm_tiled.py).
+fill so the fill -> Gnnz/s relation is explicit; padded-tile memory traffic
+is the model (throughput ~= fill x tile-load bandwidth). These lines are
+what operators/auto.py's rate-model constants are fitted to.
 
 Usage: python bench_scattered.py [--n 32768] [--k 32] [--out FILE]
-Emits one JSON line per (problem, format).
+Emits one JSON line per (problem, format); needs a GPU.
 """
 
 from __future__ import annotations
@@ -30,10 +31,11 @@ import jax
 import jax.numpy as jnp
 
 from bench import measure_apply
+from chip_smoke import card_identity, require_gpus
 
 
 def problems(n: int):
-    from blockcg_tpu.problems import (
+    from blockcg.problems import (
         delaunay_laplacian,
         random_regular_spd,
         rgg_laplacian,
@@ -44,13 +46,13 @@ def problems(n: int):
     for deg in (10, 20, 40):
         yield f"rgg_deg{deg}", rgg_laplacian(n, degree=deg, seed=0)
     yield "uniform_deg8", uniform_random_spd(min(n, 16384), degree=8.0, seed=0)
-    # exact-regular expander: the measured no-locality endpoint (compare
-    # against tools/probe_gather_bound.py's gather speed-of-light)
+    # exact-regular expander: the no-locality endpoint (the random-row
+    # gather bound of the ELL/CSR formats)
     yield "regular_deg8", random_regular_spd(min(n, 16384), degree=8, seed=0)
 
 
 def formats(a):
-    from blockcg_tpu.operators import CSROperator, ELLOperator, TiledOperator
+    from blockcg.operators import CSROperator, ELLOperator, TiledOperator
 
     yield "csr", lambda: CSROperator.from_scipy(a, dtype=jnp.float32)
     yield "ell", lambda: ELLOperator.from_scipy(a, dtype=jnp.float32)
@@ -67,10 +69,13 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--n", type=int, default=32768)
     ap.add_argument("--k", type=int, default=32)
-    ap.add_argument("--out", default="PROGRESS_BENCH.jsonl")
+    ap.add_argument("--out", default=None,
+                    help="also append the lines to this file")
     ap.add_argument("--problems", default=None,
                     help="comma-separated name filter")
     args = ap.parse_args()
+    require_gpus(1)
+    card = card_identity()
 
     rng = np.random.default_rng(0)
     want = set(args.problems.split(",")) if args.problems else None
@@ -94,9 +99,10 @@ def main():
                 "bench": "scattered_spmm", "problem": pname, "format": fname,
                 "n": n, "nnz": int(nnz), "k": args.k,
                 "avg_deg": round(nnz / n, 2),
-                "gnnzs": round(nnz / dt / 1e9, 3),
-                "spmm_ms": round(dt * 1e3, 4),
-                "device": str(jax.devices()[0]),
+                "gnnzs": nnz / dt / 1e9,
+                "spmm_ms": dt * 1e3,
+                "device": jax.devices()[0].device_kind,
+                "card": card,
             }
             if hasattr(op, "fill"):
                 line["fill_pct"] = round(100 * op.fill, 3)

@@ -2,7 +2,7 @@
 """Basic solves: CG, BCG, and the flagship SBCGrQ on 2D/3D Laplacians,
 plus mixed-precision refinement to 1e-10 (SURVEY.md north-star configs).
 
-Runs on CPU or a TPU chip unmodified: python examples/basic_solve.py
+Runs on CPU or a GPU unmodified: python examples/basic_solve.py
 """
 import pathlib
 import sys
@@ -12,8 +12,8 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 import numpy as np
 import jax.numpy as jnp
 
-import blockcg_tpu as bc
-from blockcg_tpu.problems import laplacian_dia
+import blockcg as bc
+from blockcg.problems import laplacian_dia
 
 rng = np.random.default_rng(0)
 
@@ -34,7 +34,7 @@ print(f"SBCGrQ   n={op.n:>9} k=32 iters={int(info.iterations):>4} "
 # Beyond f32: iterative refinement to 1e-10 (f64 outer / f32 inner).
 # Verify on the host in true float64 — applying the f32 operator without
 # jax_enable_x64 would silently measure at the f32 floor instead.
-from blockcg_tpu.problems import laplacian_scipy
+from blockcg.problems import laplacian_scipy
 
 X, info = bc.solve_refined(op, B, tol=1e-10)
 a64 = laplacian_scipy((64, 64, 64))
@@ -50,7 +50,7 @@ print(f"shifted  n={op.n:>9} k=8 x 3 shifts, SpMMs={int(info.matvecs)}")
 
 # Badly scaled systems: Jacobi-preconditioned stabilized block CG.
 import scipy.sparse as sp
-from blockcg_tpu.operators import DIAOperator
+from blockcg.operators import DIAOperator
 
 n = 1 << 14
 scale = np.exp(2.0 * rng.standard_normal(n))

@@ -1,10 +1,9 @@
 // Host-side CSR -> sparse-tile conversion (native preprocessing, C++).
 //
 // Reference equivalent: the reference's matrix setup is C++/Eigen
-// (SURVEY.md §3.1 R1/R10); on TPU the *compute* path is Pallas (no C++
-// touches the TPU), but the one-off host-side format conversion for large
-// matrices is native per SURVEY.md §3.1 ("host-side preprocessing may be
-// C++-extension-backed"). Built lazily with g++ by blockcg_tpu/native.py;
+// (SURVEY.md §3.1 R1/R10); the *compute* path here is XLA, but the one-off
+// host-side format conversion for large matrices is native per SURVEY.md
+// §3.1 ("host-side preprocessing may be C++-extension-backed"). Built lazily with g++ by blockcg/native.py;
 // a numpy fallback provides identical results.
 //
 // Format: the n x n CSR matrix is cut into T x T dense tiles; only tiles

@@ -3,15 +3,15 @@
 import numpy as np
 import jax.numpy as jnp
 
-from blockcg_tpu import solve_sbcgrq
-from blockcg_tpu.operators import (
+from blockcg import solve_sbcgrq
+from blockcg.operators import (
     CSROperator,
     DIAOperator,
     ELLOperator,
     TiledOperator,
     from_scipy_auto,
 )
-from blockcg_tpu.problems import (
+from blockcg.problems import (
     delaunay_laplacian,
     laplacian_scipy,
     random_block,
@@ -30,10 +30,16 @@ def test_auto_picks_dia_for_stencil():
 
 
 def test_auto_picks_rcm_tiled_for_mesh():
+    """An unstructured mesh densifies under RCM (fill far above the
+    expander's), yet its fill stays below the break-even floor against
+    the measured gather rate, so the selector picks a gather format."""
+    from blockcg.operators.auto import _predicted_rcm_fill
+
     a = delaunay_laplacian(3000, seed=1)
     op = from_scipy_auto(a, dtype=jnp.float64)
-    assert isinstance(op, TiledOperator)
-    assert op.perm is not None  # RCM applied
+    assert isinstance(op, (ELLOperator, CSROperator))
+    fill, _, _ = _predicted_rcm_fill(a)
+    assert 0.005 < fill < 0.35
 
 
 def test_auto_picks_gather_for_expander():
@@ -59,8 +65,8 @@ def test_auto_format_agnostic_solve():
 
 
 def test_auto_falls_back_when_tile_budget_exceeded():
-    """The selector's job: a mesh that passes the fill gate but exceeds the
-    padded-tile memory budget must land on a gather format, not raise."""
+    """The selector's job: a mesh whose padded tiles exceed the memory
+    budget must land on a gather format, not raise."""
     a = delaunay_laplacian(3000, seed=6)
     op = from_scipy_auto(a, dtype=jnp.float64, max_pad_bytes=1 << 20)
     assert isinstance(op, (ELLOperator, CSROperator))
@@ -71,11 +77,11 @@ def test_tiled_rcm_metadata_survives_pytree_roundtrip():
     preserve the row-order contract (a dropped perm silently returns
     permuted answers)."""
     import jax
-    from blockcg_tpu.operators.base import astype as op_astype
+    from blockcg.operators.base import astype as op_astype
 
     a = delaunay_laplacian(1500, seed=7)
-    op = from_scipy_auto(a, dtype=jnp.float32)
-    assert isinstance(op, TiledOperator) and op.perm is not None
+    op = TiledOperator.from_scipy(a, dtype=jnp.float32, reorder="rcm")
+    assert op.perm is not None
     op2 = jax.tree.map(lambda x: x, op)
     op3 = op_astype(op, jnp.float64)
     for o in (op2, op3):
@@ -94,15 +100,16 @@ def test_operator_save_load_roundtrip(tmp_path):
     tuples, RCM perm/n0), and bf16 storage all survive the npz round-trip."""
     import jax.numpy as jnp
 
-    from blockcg_tpu.operators import DIAOperator
-    from blockcg_tpu.utils import load_operator, save_operator
-    from blockcg_tpu.problems import laplacian_scipy
+    from blockcg.operators import DIAOperator
+    from blockcg.utils import load_operator, save_operator
+    from blockcg.problems import laplacian_scipy
 
     a = laplacian_scipy((12, 12))
     ops = [
         DIAOperator.from_scipy(a, dtype=jnp.float64),
-        from_scipy_auto(delaunay_laplacian(1500, seed=9), dtype=jnp.float32,
-                        tile_dtype=jnp.bfloat16),
+        TiledOperator.from_scipy(delaunay_laplacian(1500, seed=9),
+                                 dtype=jnp.float32, reorder="rcm",
+                                 tile_dtype=jnp.bfloat16),
     ]
     for op in ops:
         p = tmp_path / f"{type(op).__name__}.npz"

@@ -4,10 +4,10 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-import blockcg_tpu as bc
-from blockcg_tpu.operators import DenseOperator
-from blockcg_tpu.problems import laplacian_dia, random_spd, random_block
-from blockcg_tpu.problems.random_spd import random_hpd, random_block_c
+import blockcg as bc
+from blockcg.operators import DenseOperator
+from blockcg.problems import laplacian_dia, random_spd, random_block
+from blockcg.problems.random_spd import random_hpd, random_block_c
 
 
 def _relres(A, X, B):
@@ -50,7 +50,6 @@ def test_bcgdq_rank_robustness():
     assert _relres(A, np.asarray(X, np.float64), B) < 1e-4
 
 
-@pytest.mark.needs_complex
 def test_bcgdq_complex():
     n, k = 128, 5
     A = random_hpd(n, delta=1.0, seed=5)
@@ -69,7 +68,7 @@ def test_bcga_matches_direct_f64():
     direct solve, and the in-loop A-orthonormality invariant by proxy
     (convergence at BCG-like iteration counts with well-scaled k x k
     algebra)."""
-    import blockcg_tpu as bc
+    import blockcg as bc
 
     n, k = 300, 8
     a_np = random_spd(n, seed=12)
@@ -88,7 +87,7 @@ def test_bcga_matches_direct_f64():
 def test_bcga_badly_scaled_directions():
     """Columns scaled across decades: BCGA's normalized directions keep the
     k x k algebra conditioned (the rung's raison d'etre)."""
-    import blockcg_tpu as bc
+    import blockcg as bc
 
     n, k = 400, 6
     a_np = random_spd(n, seed=21)

@@ -1,11 +1,10 @@
-"""bf16 field-storage tests (T-K1/T-K2 capacity mode; VERDICT r2 item 3).
+"""bf16 field-storage tests (capacity mode).
 
 Large solver fields (X/W/P/Z and operator diagonals) may be stored bfloat16
-with ALL accumulation in f32: kernels convert tiles in-register (MXU/VPU
-native), k x k solver algebra (Grams, alpha/rho/S, monitors) stays f32
-(solvers/common.acc_dtype). This halves HBM traffic and field footprint —
-the route that fits the full-size 16.7M-row config 5 on one chip. Accuracy
-is recovered by iterative refinement (bf16 inner + f32/f64 outer).
+with ALL accumulation in f32: applies and updates widen on the fly, k x k
+solver algebra (Grams, alpha/rho/S, monitors) stays f32
+(solvers/common.acc_dtype). This halves memory traffic and field footprint.
+Accuracy is recovered by iterative refinement (bf16 inner + f32/f64 outer).
 """
 
 import numpy as np
@@ -13,10 +12,14 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from blockcg_tpu import solve_sbcgrq
-from blockcg_tpu.ops import fused, stencil
-from blockcg_tpu.problems import laplacian_dia, laplacian_scipy
-from blockcg_tpu.solvers.refine import solve_refined
+from blockcg import solve_sbcgrq
+from blockcg.operators import DIAOperator
+from blockcg.problems import laplacian_dia, laplacian_scipy
+from blockcg.solvers.common import (
+    f_gram, f_mm2_update_gram, f_mm_update, f_mm_update_gram, f_px_update,
+    f_qr_p_update, f_qr_px_update, f_xr_update_gram,
+)
+from blockcg.solvers.refine import solve_refined
 
 BF = jnp.bfloat16
 
@@ -32,15 +35,14 @@ def _kk(k, seed):
 
 
 def test_stencil_kernel_bf16_interpret():
-    """bf16 X + bf16 diags through the Pallas stencil kernel (interpret):
-    matches the f64 oracle to bf16 resolution, output dtype bf16, fused
-    Gram f32."""
+    """bf16 X + bf16 diags through the DIA apply: matches the f64 oracle
+    to bf16 resolution, output dtype bf16, Gram f32."""
     shape = (16, 16)
     op64 = laplacian_dia(shape, dtype=jnp.float64)
     diags = op64.diags.astype(BF)
     Xt = _field((8, op64.n), 0)
-    Yt, G = stencil.stencil_spmm_gram_t(diags, op64.offsets, Xt,
-                                        interpret=True)
+    op = DIAOperator(diags=diags, offsets=op64.offsets)
+    Yt, G = op.matmat_gram_t(Xt)
     assert Yt.dtype == BF
     assert G.dtype == jnp.float32
     want = np.asarray(op64.matmat_t(Xt.astype(jnp.float64)))
@@ -57,7 +59,7 @@ def test_fused_mm2_update_gram_bf16(shape):
     k = shape[0]
     M1, M2 = _kk(k, 1), _kk(k, 2)
     B1, B2 = _field(shape, 3), _field(shape, 4)
-    Y, G = fused.mm2_update_gram(M1, B1, M2, B2, interpret=True)
+    Y, G = f_mm2_update_gram(M1, B1, M2, B2)
     assert Y.dtype == BF
     assert G.dtype == jnp.float32
     b1 = np.asarray(B1, np.float64).reshape(k, -1)
@@ -72,7 +74,7 @@ def test_fused_px_update_bf16(shape):
     k = shape[0]
     M1, rho, C = _kk(k, 5), _kk(k, 6), _kk(k, 7)
     W, P, X = _field(shape, 8), _field(shape, 9), _field(shape, 10)
-    Pn, Xn = fused.px_update(M1, W, rho, P, C, X, interpret=True)
+    Pn, Xn = f_px_update(M1, W, rho, P, C, X)
     assert Pn.dtype == BF and Xn.dtype == BF
     w = np.asarray(W, np.float64).reshape(k, -1)
     p = np.asarray(P, np.float64).reshape(k, -1)
@@ -106,9 +108,8 @@ def test_sbcgrq_bf16_fields_converge():
 def test_cg_bf16_fields_converge():
     """Plain CG with bf16 fields: scalars (rho/alpha/beta/monitor) ride f32
     via acc_dtype while the (1, n) state stays bf16 — regression for the
-    while_loop carry dtype mismatch that crashed the bf16 CG preset
-    (CHIP_QUEUE_r3.log bench-presets-bf16, 2026-08-18)."""
-    from blockcg_tpu import solve_cg
+    while_loop carry dtype mismatch that crashed the bf16 CG preset."""
+    from blockcg import solve_cg
 
     shape = (16, 16)
     op = laplacian_dia(shape, dtype=BF)
@@ -165,7 +166,7 @@ def test_refined_lean_capacity_driver():
     solves on column slices — reaches 1e-6 and matches the direct solve."""
     import scipy.sparse.linalg as spla
 
-    from blockcg_tpu.solvers.refine import solve_refined_lean
+    from blockcg.solvers.refine import solve_refined_lean
 
     shape = (16, 16)
     op = laplacian_dia(shape, dtype=BF)
@@ -187,9 +188,9 @@ def test_refined_lean_capacity_driver():
 
 def test_refined_lean_deflated(monkeypatch):
     """The capacity driver with converged-column deflation in the inner
-    slices (lanes-major width-halving; VERDICT r4 item 8). Must converge to
+    slices (lanes-major width-halving). Must converge to
     the same target as the fixed-width path."""
-    from blockcg_tpu.solvers.refine import solve_refined_lean
+    from blockcg.solvers.refine import solve_refined_lean
 
     monkeypatch.setenv("BLOCKCG_DEFLATE_NMIN", "0")  # tiny n: keep halving on
     shape = (16, 16, 4)
@@ -210,14 +211,9 @@ def test_refined_lean_deflated(monkeypatch):
     assert res.max() <= 2e-6
 
 
-def test_bf16_fused_kernel_coverage(monkeypatch):
-    """Every fused kernel's NATIVE-bf16 MXU branch vs a f64 oracle
-    (review finding: gram/mm_update/mm_update_gram/qr_p/qr_px had no bf16
-    interpret coverage; the Mosaic 'Bad lhs type' class of lowering bug in
-    that branch would otherwise ship with the suite green)."""
-    from blockcg_tpu.ops import fused
-
-    monkeypatch.setenv("BLOCKCG_FUSED_INTERPRET", "1")
+def test_bf16_fused_kernel_coverage():
+    """Every block-update helper on bf16 fields vs a f64 oracle: bf16
+    storage, f32 coefficients and Grams."""
     k, n = 8, 512
     rng = np.random.default_rng(31)
     M1 = jnp.asarray(rng.standard_normal((k, k)), jnp.float32)
@@ -236,36 +232,36 @@ def test_bf16_fused_kernel_coverage(monkeypatch):
         assert np.abs(got - want).max() / (np.abs(want).max() + 1e-30) < tol
 
     # gram (native bf16 dot is exact in f32 accumulation)
-    G = fused.gram(U, V)
+    G = f_gram(U, V)
     close(G, Uf @ Vf.T, 1e-6)
     # mm_update (+A) — coefficient rounds to bf16 (~4e-3)
-    Y = fused.mm_update(M1, U, X)
+    Y = f_mm_update(M1, U, X)
     close(Y, M1f @ Uf + Xf)
     assert Y.dtype == BF
     # mm_update_gram: gram taken on the STORED bf16 y
-    Y2, G2 = fused.mm_update_gram(M1, U, X)
+    Y2, G2 = f_mm_update_gram(M1, U, X)
     Y2f = np.asarray(Y2, np.float64)
     close(Y2, M1f @ Uf + Xf)
     close(G2, Y2f @ Y2f.T, 1e-6)
     # mm2_update_gram
-    Y3, G3 = fused.mm2_update_gram(M1, U, M2, V)
+    Y3, G3 = f_mm2_update_gram(M1, U, M2, V)
     Y3f = np.asarray(Y3, np.float64)
     close(Y3, M1f @ Uf + M2f @ Vf)
     close(G3, Y3f @ Y3f.T, 1e-6)
     # px_update
-    Pn, Xn = fused.px_update(M1, U, M2, V, M1, X)
+    Pn, Xn = f_px_update(M1, U, M2, V, M1, X)
     close(Pn, M1f @ Uf + M2f @ Vf)
     close(Xn, Xf + M1f @ Vf)
     # qr_p_update / qr_px_update
-    Q, Pn2 = fused.qr_p_update(M2, U, M1, V)
+    Q, Pn2 = f_qr_p_update(M2, U, M1, V)
     close(Q, M2f @ Uf)
     close(Pn2, M2f @ Uf + M1f @ Vf)
-    Q3, Pn3, Xn3 = fused.qr_px_update(M2, U, M1, V, M2, X)
+    Q3, Pn3, Xn3 = f_qr_px_update(M2, U, M1, V, M2, X)
     close(Q3, M2f @ Uf)
     close(Pn3, M2f @ Uf + M1f @ Vf)
     close(Xn3, Xf + M2f @ Vf)
-    # xr_update_gram (BCG/BCGA fused tail)
-    Xn4, Rn4, S4 = fused.xr_update_gram(M1, U, X, V, X)
+    # xr_update_gram (BCG/BCGA tail)
+    Xn4, Rn4, S4 = f_xr_update_gram(M1, U, X, V, X)
     Rn4f = np.asarray(Rn4, np.float64)
     close(Xn4, Xf + M1f @ Uf)
     close(Rn4, Xf - M1f @ Vf)

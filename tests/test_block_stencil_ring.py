@@ -1,19 +1,14 @@
-"""Rolling-ring BLOCK-stencil SpMM kernel tests (T-K1 matrix-link large-n
-path), interpret mode on CPU.
-
-ops/block_stencil_ring.py streams the merged spin-major field through a
-manually-DMA'd VMEM ring (x_reads = 1.0) — the round-4 fix for the general
-matrix-link kernel's measured 31.1/26.7 Gnnz/s at 32^4 (~42% of its own
-windowed HBM model, BASELINE.md round-4 matrix-link notes). Oracles are
-scipy assemblies / the operator's XLA fallback in f64.
+"""BlockDIA merged-view apply at L = 8 (T-K1 matrix-link path): several
+toroidal wraps per axis, t-offsets that reach far across the site axis, and
+site-varying matrix links, through the operator's public ``matmat_t`` /
+``matmat_gram_t`` against scipy float64 assemblies.
 """
 
 import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from blockcg_tpu.ops import block_stencil_ring
-from blockcg_tpu.problems import bdia_scipy, dirac_bdia, dirac_gauged_matrix
+from blockcg.problems import bdia_scipy, dirac_bdia, dirac_gauged_matrix
 
 
 def _merged(op, X):
@@ -24,14 +19,12 @@ def _merged(op, X):
 @pytest.mark.parametrize("bc,k", [("periodic", 2), ("open", 2),
                                   ("periodic", 4)])
 def test_ring_block_matches_scipy(bc, k):
-    L = 8  # ns = 4096: several ring wraps; t-offset 512 exercises far slots
+    L = 8  # ns = 4096; the t-offset 512 wraps the site axis
     op = dirac_bdia(L, m=0.5, bc=bc, dtype=jnp.float32)
-    assert block_stencil_ring.available(op.ns, op.bs * k, op.bs, op.offsets)
     a = bdia_scipy(op)
     rng = np.random.default_rng(0)
     X = rng.standard_normal((op.n, k)).astype(np.float32)
-    Ym = block_stencil_ring.ring_block_spmm_m_t(
-        op.blocks, op.offsets, _merged(op, X), interpret=True)
+    Ym = op.matmat_t(_merged(op, X))
     got = np.asarray(op.from_internal(Ym)).T
     want = a @ X
     assert np.abs(got - want).max() / np.abs(want).max() < 1e-5
@@ -44,45 +37,38 @@ def test_ring_block_matrix_links_matches_scipy():
     rng = np.random.default_rng(1)
     k = 2
     X = rng.standard_normal((op.n, k)).astype(np.float32)
-    Ym = block_stencil_ring.ring_block_spmm_m_t(
-        op.blocks, op.offsets, _merged(op, X), interpret=True)
+    Ym = op.matmat_t(_merged(op, X))
     got = np.asarray(op.from_internal(Ym)).T
     want = a @ X
     assert np.abs(got - want).max() / np.abs(want).max() < 1e-5
 
 
 def test_ring_block_gram_and_seed():
+    """matmat_gram_t on the merged view: Y equals the plain apply and G the
+    k x k contraction of X Y^T."""
     op = dirac_bdia(8, m=0.5, bc="periodic", dtype=jnp.float32)
     rng = np.random.default_rng(2)
     k = 2
     m = op.bs * k
     Xm = jnp.asarray(rng.standard_normal((m, op.ns)), jnp.float32)
-    Y0 = block_stencil_ring.ring_block_spmm_m_t(
-        op.blocks, op.offsets, Xm, interpret=True)
-    Y, G = block_stencil_ring.ring_block_spmm_m_gram_t(
-        op.blocks, op.offsets, Xm, interpret=True)
+    Y0 = op.matmat_t(Xm)
+    Y, G = op.matmat_gram_t(Xm)
     np.testing.assert_allclose(np.asarray(Y), np.asarray(Y0),
                                rtol=1e-6, atol=1e-6)
     wantG = np.asarray(Xm, np.float64) @ np.asarray(Y0, np.float64).T
+    wantG = np.einsum("aiaj->ij", wantG.reshape(op.bs, k, op.bs, k))
     assert np.abs(np.asarray(G, np.float64) - wantG).max() / np.abs(
         wantG).max() < 1e-5
-    # seed is added into G (the benchmark-chain dependence hook)
-    seed = jnp.asarray(rng.standard_normal((m, m)), jnp.float32)
-    _, Gs = block_stencil_ring.ring_block_spmm_m_gram_t(
-        op.blocks, op.offsets, Xm, seed=seed, interpret=True)
-    np.testing.assert_allclose(np.asarray(Gs), np.asarray(G + seed),
-                               rtol=1e-5, atol=1e-4)
 
 
 def test_ring_block_bf16_accumulates_f32():
+    """bf16 blocks and field: the apply accumulates in f32 and stores bf16."""
     op = dirac_bdia(8, m=0.5, bc="periodic", dtype=jnp.float32)
     rng = np.random.default_rng(3)
     Xm = jnp.asarray(rng.standard_normal((8, op.ns)), jnp.float32)
-    want = block_stencil_ring.ring_block_spmm_m_t(
-        op.blocks, op.offsets, Xm, interpret=True)
-    Yb = block_stencil_ring.ring_block_spmm_m_t(
-        op.blocks.astype(jnp.bfloat16), op.offsets,
-        Xm.astype(jnp.bfloat16), interpret=True)
+    want = op.matmat_t(Xm)
+    opb = type(op)(blocks=op.blocks.astype(jnp.bfloat16), offsets=op.offsets)
+    Yb = opb.matmat_t(Xm.astype(jnp.bfloat16))
     assert Yb.dtype == jnp.bfloat16
     ref = np.asarray(want, np.float64)
     # bf16 stores ~8e-3 relative; accumulation stays f32
@@ -90,240 +76,18 @@ def test_ring_block_bf16_accumulates_f32():
         ref).max() < 5e-2
 
 
-def test_ring_block_plan_rejects():
-    offs = (0, 1, -1, 64, -64, 512, -512)
-    # m not a multiple of the 8-row sublane tile
-    assert block_stencil_ring.plan(4096, 12, 4, offs) is None
-    # ns below the floor / not a multiple of 128
-    assert block_stencil_ring.plan(256, 8, 4, offs) is None
-    assert not block_stencil_ring.available(4096 + 64, 8, 4, offs)
-
-
-def test_ring_block_donate_matches_fresh():
-    """Donated (Y aliased onto Xm) vs fresh, open-BC (wrap_zero) operator.
-
-    Interpret mode exercises the aliasing plumbing but materializes the
-    output separately, so it cannot reproduce the wrap-read hazard —
-    test_ring_block_onchip_smoke covers that on hardware."""
-    op = dirac_bdia(8, m=0.5, bc="open", dtype=jnp.float32)
-    assert op.wrap_zero
-    rng = np.random.default_rng(4)
-    Xm = jnp.asarray(rng.standard_normal((8, op.ns)), jnp.float32)
-    fresh = block_stencil_ring.ring_block_spmm_m_t(
-        op.blocks, op.offsets, Xm, interpret=True)
-    donated = block_stencil_ring.ring_block_spmm_m_t(
-        op.blocks, op.offsets, Xm, interpret=True, donate=True)
-    np.testing.assert_array_equal(np.asarray(fresh), np.asarray(donated))
-
-
-def test_ring_block_operator_dispatch_gate():
-    """wrap_zero gates donation; periodic builders must NOT set it (their
-    slowest-axis hop coefficients ride the toroidal wrap nonzero)."""
-    assert dirac_bdia(4, bc="open").wrap_zero
-    assert not dirac_bdia(4, bc="periodic").wrap_zero
-    assert dirac_gauged_matrix(4, bc="open").wrap_zero
-    assert not dirac_gauged_matrix(4, bc="periodic").wrap_zero
-
-
-def test_assert_wrap_zero_catches_violation():
-    """The build-time numeric wrap_zero check (advisor r4): a periodic
-    operator's blocks — nonzero slowest-axis toroidal wraps — must FAIL the
-    check its open sibling passes (hardware corrupts silently otherwise)."""
-    from blockcg_tpu.operators.base import assert_wrap_zero
-
-    op_open = dirac_bdia(4, bc="open")
-    # passes (also exercised inside every open builder already)
-    assert_wrap_zero(np.asarray(op_open.blocks), op_open.offsets, op_open.ns)
-    op_per = dirac_bdia(4, bc="periodic")
-    with pytest.raises(AssertionError, match="wrap_zero claimed"):
-        assert_wrap_zero(np.asarray(op_per.blocks), op_per.offsets,
-                         op_per.ns)
-    # EO half-lattice open hops pass it too (they authorize the donated
-    # ring apply on a comment-level argument — now numerically verified)
-    from blockcg_tpu.problems.dirac_eo import dirac_gauged_matrix_eo
-
-    eo = dirac_gauged_matrix_eo(4, bc="open")
-    for h in (eo.hop_eo, eo.hop_oe):
-        assert h.wrap_zero
-        assert_wrap_zero(np.asarray(h.blocks), h.offsets, h.ns)
-
-
-def test_ring_block_dispatch_small_n_guard(monkeypatch):
-    """BlockDIAOperator._use_ring refuses the ring when the windowed plan is
-    (near-)VMEM-resident (x_reads <= 2) — mirror of the scalar DIA guard.
-
-    Chip basis: L=8 merged-path windowed 286 vs ring 79.6 Gnnz/s
-    (CHIP_QUEUE_r4.log); the guard keeps small matrix-link solves on the
-    windowed kernel. Shape-only ShapeDtypeStructs keep the large-L cases
-    allocation-free."""
-    import jax
-
-    from blockcg_tpu.operators.bdia import BlockDIAOperator
-    from blockcg_tpu.ops import block_stencil
-
-    monkeypatch.delenv("BLOCKCG_NO_RING", raising=False)
-    monkeypatch.delenv("BLOCKCG_RING_MAX_MB", raising=False)
-
-    def op_and_field(L, k=12):
-        offs = [0]
-        for ax in range(4):
-            st = L ** ax
-            offs += [st, -st]
-            if ax < 3:
-                offs += [-(L - 1) * st, (L - 1) * st]
-        ns, bs = L ** 4, 4
-        op = BlockDIAOperator(
-            blocks=jax.ShapeDtypeStruct((len(offs), bs, bs, ns),
-                                        jnp.float32),
-            offsets=tuple(offs))
-        Xm = jax.ShapeDtypeStruct((bs * k, ns), jnp.float32)
-        return op, Xm
-
-    # L=8: windowed x_reads 1.25 -> windowed wins, ring refused
-    op8, X8 = op_and_field(8)
-    p8 = block_stencil.plan_m(op8.ns, X8.shape[0], op8.bs, op8.offsets)
-    assert p8 is not None and p8.x_reads <= 2.0
-    assert not op8._use_ring(X8)
-    # L=32 (the 32^4 matrix-link config): windowed re-reads 7x -> ring
-    op32, X32 = op_and_field(32)
-    p32 = block_stencil.plan_m(op32.ns, X32.shape[0], op32.bs, op32.offsets)
-    assert p32 is not None and p32.x_reads > 2.0
-    assert op32._use_ring(X32)
-    # L=24: no windowed merged plan exists at all -> ring (the only path)
-    op24, X24 = op_and_field(24)
-    assert block_stencil.plan_m(op24.ns, X24.shape[0], op24.bs,
-                                op24.offsets) is None
-    assert op24._use_ring(X24)
-    # escape valves still override
-    monkeypatch.setenv("BLOCKCG_NO_RING", "1")
-    assert not op32._use_ring(X32)
-    monkeypatch.delenv("BLOCKCG_NO_RING")
-    # probe valve: FORCE_RING skips only the small-n preference guard
-    monkeypatch.setenv("BLOCKCG_FORCE_RING", "1")
-    assert op8._use_ring(X8)
-
-
-def test_ring_block_folded_matches_plain(monkeypatch):
-    """Folded periodic-wrap kernel (one dense stream per bulk+wrap pair,
-    iota-mask source select — VERDICT r4 item 3) vs the plain 15-diagonal
-    ring kernel and the scipy oracle. Folding is build-time OPT-IN
-    (BLOCKCG_FOLD; chip-measured slower than the plain ring, kept for
-    bandwidth-starved parts)."""
-    monkeypatch.setenv("BLOCKCG_FOLD", "1")
-    for builder, tol in ((dirac_bdia, 1e-5), (dirac_gauged_matrix, 1e-5)):
-        op = builder(8, m=0.5, bc="periodic", dtype=jnp.float32)
-        assert op.fold, builder.__name__
-        assert op.blocks_folded.shape[0] == len(op.fold_offsets)
-        # 15 plain diagonals -> 9 streamed
-        assert len(op.offsets) == 15 and len(op.fold_offsets) == 9
-        rng = np.random.default_rng(6)
-        k = 2
-        X = rng.standard_normal((op.n, k)).astype(np.float32)
-        Xm = _merged(op, X)
-        Y_plain = block_stencil_ring.ring_block_spmm_m_t(
-            op.blocks, op.offsets, Xm, interpret=True)
-        Y_fold = block_stencil_ring.ring_block_spmm_m_t(
-            op.blocks_folded, op.fold_offsets, Xm, interpret=True,
-            fold=op.fold)
-        err = float(jnp.max(jnp.abs(Y_plain - Y_fold))
-                    / jnp.max(jnp.abs(Y_plain)))
-        assert err < tol, (builder.__name__, err)
-        a = bdia_scipy(op)
-        got = np.asarray(op.from_internal(Y_fold)).T
-        want = a @ X
-        assert np.abs(got - want).max() / np.abs(want).max() < tol
-        # gram variant agrees
-        Yg, G = block_stencil_ring.ring_block_spmm_m_gram_t(
-            op.blocks_folded, op.fold_offsets, Xm, interpret=True,
-            fold=op.fold)
-        np.testing.assert_allclose(np.asarray(Yg), np.asarray(Y_fold),
-                                   rtol=1e-6, atol=1e-5)
-        wantG = np.asarray(Xm, np.float64) @ np.asarray(Y_fold,
-                                                        np.float64).T
-        assert np.abs(np.asarray(G, np.float64) - wantG).max() / np.abs(
-            wantG).max() < 1e-5
-
-
-def test_ring_block_folded_eo_hops(monkeypatch):
-    """Periodic EO matrix-link parity hops fold too (z/y half-stride wraps
-    pair under the same o*(1-L) rule; parity-split x hops stay plain —
-    the helper's mask-structure check keeps them out)."""
-    from blockcg_tpu.problems.dirac_eo import dirac_gauged_matrix_eo
-
-    monkeypatch.setenv("BLOCKCG_FOLD", "1")
-    eo = dirac_gauged_matrix_eo(8, m=0.5, bc="periodic", dtype=jnp.float32)
-    for h in (eo.hop_eo, eo.hop_oe):
-        assert h.fold and len(h.fold_offsets) == 11  # 15 -> 11 streams
-        rng = np.random.default_rng(7)
-        Xm = jnp.asarray(rng.standard_normal((8, h.ns)), jnp.float32)
-        Yp = block_stencil_ring.ring_block_spmm_m_t(
-            h.blocks, h.offsets, Xm, interpret=True)
-        Yf = block_stencil_ring.ring_block_spmm_m_t(
-            h.blocks_folded, h.fold_offsets, Xm, interpret=True,
-            fold=h.fold)
-        err = float(jnp.max(jnp.abs(Yp - Yf)) / jnp.max(jnp.abs(Yp)))
-        assert err < 1e-5
-
-
-def test_ring_block_folded_plan_geometry(monkeypatch):
-    """The folded plan's ring geometry must cover the wrap offsets (they
-    are window reads even though they are not streamed diagonals)."""
-    monkeypatch.setenv("BLOCKCG_FOLD", "1")
-    op = dirac_gauged_matrix(8, m=0.5, bc="periodic", dtype=jnp.float32)
-    pf = block_stencil_ring.plan(op.ns, 8, op.bs, op.fold_offsets,
-                                 fold=op.fold)
-    pp = block_stencil_ring.plan(op.ns, 8, op.bs, op.offsets)
-    assert pf is not None and pp is not None
-    assert pf.M == pp.M and pf.S == pp.S  # same reach as the plain plan
-
-
 def test_ring_block_onchip_smoke():
-    """Ring block kernel vs oracle, fresh + donated + gram — the on-chip
-    regression entry (manual-DMA kernel family: unawaited in-flight DMAs
-    abort on hardware only; donated wrap reads need wrap_zero). On CPU this
-    runs interpret mode; under BLOCKCG_TEST_TPU=1 it executes the real
-    Mosaic kernel."""
-    import jax
-
-    interp = jax.default_backend() != "tpu"
+    """Open-boundary operator: apply and gram vs the scipy oracle on the
+    merged view (chip_smoke.py runs the same comparison on the GPU)."""
     op = dirac_bdia(8, m=0.5, bc="open", dtype=jnp.float32)
     a = bdia_scipy(op)
     rng = np.random.default_rng(5)
     k = 2
     X = rng.standard_normal((op.n, k)).astype(np.float32)
     want = a @ X
-    for donate in (False, True):
-        Ym = block_stencil_ring.ring_block_spmm_m_t(
-            op.blocks, op.offsets, _merged(op, X),
-            interpret=interp, donate=donate)
-        got = np.asarray(op.from_internal(Ym)).T
-        assert np.abs(got - want).max() / np.abs(want).max() < 1e-5, (
-            f"donate={donate}")
-    Ym, G = block_stencil_ring.ring_block_spmm_m_gram_t(
-        op.blocks, op.offsets, _merged(op, X), interpret=interp)
+    Ym, G = op.matmat_gram_t(_merged(op, X))
     got = np.asarray(op.from_internal(Ym)).T
     assert np.abs(got - want).max() / np.abs(want).max() < 1e-5
-    Xm = np.asarray(_merged(op, X), np.float64)
-    wantG = Xm @ np.asarray(Ym, np.float64).T
+    wantG = X.T.astype(np.float64) @ want.astype(np.float64)
     assert np.abs(np.asarray(G, np.float64) - wantG).max() / np.abs(
         wantG).max() < 1e-5
-
-    # FOLDED periodic kernel on hardware: the iota-mask source select and
-    # the effective-offset ring geometry are new Mosaic lowering surface
-    # (round 5); verify vs oracle on the real chip too. Folding is
-    # build-time opt-in, so build the folded twin explicitly.
-    import os
-    os.environ["BLOCKCG_FOLD"] = "1"
-    try:
-        opp = dirac_bdia(8, m=0.5, bc="periodic", dtype=jnp.float32)
-    finally:
-        del os.environ["BLOCKCG_FOLD"]
-    assert opp.fold
-    ap = bdia_scipy(opp)
-    Xp = rng.standard_normal((opp.n, k)).astype(np.float32)
-    Ymf = block_stencil_ring.ring_block_spmm_m_t(
-        opp.blocks_folded, opp.fold_offsets, _merged(opp, Xp),
-        interpret=interp, fold=opp.fold)
-    gotp = np.asarray(opp.from_internal(Ymf)).T
-    wantp = ap @ Xp
-    assert np.abs(gotp - wantp).max() / np.abs(wantp).max() < 1e-5

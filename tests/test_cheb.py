@@ -3,10 +3,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-import blockcg_tpu as bc
-from blockcg_tpu.operators.cheb import ChebyshevOperator, estimate_spectrum
-from blockcg_tpu.problems import laplacian_dia, laplacian_scipy
-from blockcg_tpu.ops import fused
+import blockcg as bc
+from blockcg.operators.cheb import ChebyshevOperator, estimate_spectrum
+from blockcg.problems import laplacian_dia, laplacian_scipy
 
 
 def test_estimate_spectrum_laplacian():
@@ -35,16 +34,33 @@ def test_cheb_operator_spd_and_commutes():
 
 
 def test_cheb_step_kernel_interpret():
+    """M r = p_d(A) r vs the Chebyshev semi-iteration (Saad Alg. 12.1)
+    written out in float64 numpy: d - 1 steps of
+    dlt' = rho' rho dlt + (2 rho' / delta)(r - A z),  z' = z + dlt'."""
+    shape = (32, 32)
+    op = laplacian_dia(shape, dtype=jnp.float32)
+    a = laplacian_scipy(shape)
+    lo, hi = 0.05, 8.0
+    degree = 4
+    pop = ChebyshevOperator(base=op, lo=jnp.float32(lo), hi=jnp.float32(hi),
+                            degree=degree)
     rng = np.random.default_rng(0)
-    shp = (8, 1024)
-    R, Z, D, AZ = (jnp.asarray(rng.standard_normal(shp), jnp.float32)
-                   for _ in range(4))
-    c1, c2 = 0.37, -1.21
-    Zo, Do = fused.cheb_step(R, Z, D, AZ, c1, c2, interpret=True)
-    Dn = c1 * np.asarray(D) + c2 * (np.asarray(R) - np.asarray(AZ))
-    np.testing.assert_allclose(np.asarray(Do), Dn, rtol=1e-6, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(Zo), np.asarray(Z) + Dn,
-                               rtol=1e-6, atol=1e-6)
+    R = rng.standard_normal((8, op.n)).astype(np.float32)
+    got = np.asarray(pop.apply_m_t(jnp.asarray(R)), np.float64)
+
+    theta, delta = (hi + lo) / 2, (hi - lo) / 2
+    sigma1 = theta / delta
+    rho = 1.0 / sigma1
+    r = R.astype(np.float64).T
+    z = r / theta
+    dlt = z
+    for _ in range(degree - 1):
+        rho_new = 1.0 / (2.0 * sigma1 - rho)
+        dlt = rho_new * rho * dlt + (2.0 * rho_new / delta) * (r - a @ z)
+        z = z + dlt
+        rho = rho_new
+    np.testing.assert_allclose(got, z.T, rtol=1e-5,
+                               atol=1e-5 * np.abs(z).max())
 
 
 def test_cheb_solve_matches_direct_and_cuts_iterations():

@@ -4,7 +4,7 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from blockcg_tpu.solvers.common import cholqr
+from blockcg.solvers.common import cholqr
 
 
 def _check(V, passes, dtype, orth_tol, rec_tol):

@@ -5,20 +5,19 @@ systems (Eigen, lattice QCD; SURVEY.md §1). Two routes here:
   - true-complex: the solvers run on complex dtypes directly (conjugate-
     correct Grams/Cholesky/CholQR);
   - realified: operators/realify.py maps A Hermitian to the real symmetric
-    [[Ar,-Ai],[Ai,Ar]] on stacked (re, im) fields — the TPU fast path.
+    [[Ar,-Ai],[Ai,Ar]] on stacked (re, im) fields.
 """
 
 import numpy as np
 import pytest
 import jax.numpy as jnp
 
-pytestmark = pytest.mark.needs_complex
 
-import blockcg_tpu as bc
-from blockcg_tpu.operators import DenseOperator, realify
-from blockcg_tpu.problems import dirac_bdia, dirac_cbdia
-from blockcg_tpu.problems.dirac import bdia_scipy
-from blockcg_tpu.problems.random_spd import random_hpd, random_block_c
+import blockcg as bc
+from blockcg.operators import DenseOperator, realify
+from blockcg.problems import dirac_bdia, dirac_cbdia
+from blockcg.problems.dirac import bdia_scipy
+from blockcg.problems.random_spd import random_hpd, random_block_c
 
 
 def _hpd_op(n, seed=0, dtype=jnp.complex128):
@@ -136,8 +135,8 @@ def test_realified_nnz_and_shape():
 def test_refined_realified_reaches_1e10():
     """Regression: astype must widen the realified wrapper's cdtype (once a
     meta field tree_map couldn't change — refinement stalled at ~6e-8)."""
-    import blockcg_tpu as bc
-    from blockcg_tpu.operators.base import astype
+    import blockcg as bc
+    from blockcg.operators.base import astype
 
     rng = np.random.default_rng(50)
     V = rng.standard_normal((64, 96)) + 1j * rng.standard_normal((64, 96))

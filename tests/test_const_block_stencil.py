@@ -1,11 +1,11 @@
-"""Constant-hop block-stencil kernel + ConstBlockDIA operator tests."""
+"""ConstBlockDIA operator tests: the public applies on the flat, 3D and
+merged spin-major views against scipy float64 oracles."""
 
 import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from blockcg_tpu.ops.const_block_stencil import const_block_stencil_spmm_t, plan
-from blockcg_tpu.problems import bdia_scipy, dirac_bdia, dirac_cbdia
+from blockcg.problems import bdia_scipy, dirac_bdia, dirac_cbdia
 
 
 @pytest.mark.parametrize("bc", ["periodic", "open"])
@@ -24,7 +24,7 @@ def test_cbdia_xla_matches_scipy(bc):
     a = bdia_scipy(op.to_block_dia())
     rng = np.random.default_rng(0)
     X = rng.standard_normal((op.n, 3))
-    got = np.asarray(op._matmat_t_xla(jnp.asarray(X.T))).T
+    got = np.asarray(op.matmat_t(jnp.asarray(X.T))).T
     np.testing.assert_allclose(got, a @ X, rtol=1e-12, atol=1e-12)
 
 
@@ -43,18 +43,16 @@ def test_const_block_stencil_kernel_interpret(bc, L, k):
     a = bdia_scipy(op.to_block_dia())
     rng = np.random.default_rng(1)
     X = rng.standard_normal((op.n, k)).astype(np.float32)
-    Yt = const_block_stencil_spmm_t(
-        op.hops, op.offsets, op.mask_slot, op.masks, jnp.asarray(X.T),
-        interpret=True,
-    )
+    Xv = jnp.asarray(X.T).reshape(k, op.bs, op.ns)  # the 3D (k, bs, ns) view
+    Yt = op.matmat_t(Xv).reshape(k, op.n)
     want = a @ X
     err = np.abs(np.asarray(Yt).T - want).max() / np.abs(want).max()
     assert err < 1e-5
 
 
 def test_const_kernel_no_masks_interpret():
-    """All-unmasked path (masks=None): pure-torus operator."""
-    from blockcg_tpu.operators.cbdia import ConstBlockDIAOperator
+    """All-unmasked operator (masks=None): pure torus vs dense oracle."""
+    from blockcg.operators.cbdia import ConstBlockDIAOperator
 
     ns, bs, k = 256, 2, 3
     hops = (
@@ -68,36 +66,15 @@ def test_const_kernel_no_masks_interpret():
     )
     rng = np.random.default_rng(2)
     Xt = jnp.asarray(rng.standard_normal((k, op.n)), dtype=jnp.float32)
-    want = op._matmat_t_xla(Xt)
-    got = const_block_stencil_spmm_t(
-        op.hops, op.offsets, op.mask_slot, None, Xt, interpret=True
-    )
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=2e-6, atol=2e-6)
-
-
-def test_const_plan_dirac32_traffic():
-    """32^4 periodic config: plan exists and masks cut coefficient traffic.
-
-    nmask = 12 masked diagonals (axes 1-3) vs 17*16 = 272 coefficient rows
-    in the general block kernel.
-    """
-    L = 32
-    strides = [L**3, L**2, L, 1]
-    offs = [0, strides[0], -strides[0]]
-    for st in strides[1:]:
-        offs += [st, -st, -(L - 1) * st, (L - 1) * st]
-    # Real symmetric hops dedup to 5 groups (diag + 4 axes); the complex
-    # realified operator (bs=8, conj-transposed hops distinct) gives 9.
-    p = plan(L**4, 12, 4, tuple(offs), nmask=12, groups=5)
-    assert p is not None
-    assert p.x_reads <= 8.0
-    p8 = plan(L**4, 12, 8, tuple(offs), nmask=12, groups=9)
-    assert p8 is not None
+    a = bdia_scipy(op.to_block_dia()).toarray()
+    want = (a @ np.asarray(Xt, np.float64).T).T
+    got = op.matmat_t(Xt)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=2e-6, atol=2e-6)
 
 
 def test_cbdia_solve_sbcgrq():
-    """End-to-end: SBCGrQ through the const operator (XLA path on CPU)."""
-    import blockcg_tpu as bc
+    """End-to-end: SBCGrQ through the const operator."""
+    import blockcg as bc
 
     op = dirac_cbdia(4, m=0.5, dtype=jnp.float32)
     rng = np.random.default_rng(3)
@@ -110,19 +87,12 @@ def test_cbdia_solve_sbcgrq():
 
 
 def test_const_block_stencil_gram_fused():
-    from blockcg_tpu.ops.const_block_stencil import (
-        const_block_stencil_spmm_gram_t,
-    )
-
+    """Flat-view matmat_gram_t: Y as matmat_t, G == X Y^T."""
     op = dirac_cbdia(4, m=0.5, bc="periodic", dtype=jnp.float32)
     rng = np.random.default_rng(11)
     Xt = jnp.asarray(rng.standard_normal((5, op.n)), dtype=jnp.float32)
-    Yt, G = const_block_stencil_spmm_gram_t(
-        op.hops, op.offsets, op.mask_slot, op.masks, Xt, interpret=True
-    )
-    want_y = const_block_stencil_spmm_t(
-        op.hops, op.offsets, op.mask_slot, op.masks, Xt, interpret=True
-    )
+    Yt, G = op.matmat_gram_t(Xt)
+    want_y = op.matmat_t(Xt)
     np.testing.assert_allclose(np.asarray(Yt), np.asarray(want_y),
                                rtol=1e-6, atol=1e-6)
     want_g = np.asarray(Xt, np.float64) @ np.asarray(want_y, np.float64).T
@@ -130,38 +100,36 @@ def test_const_block_stencil_gram_fused():
 
 
 def test_cbdia_matmat_gram_with_slabs():
-    """Operator-level fused gram includes the slab-routed wrap diagonals.
-
-    Flat public input: the operator converts through the merged layout; the
-    returned Gram is the k x k contraction (== X Y^T of the flat fields)."""
-    from blockcg_tpu.operators.cbdia import detect_slabs
-
+    """Gram of a periodic L=8 operator, whose wrap diagonals touch only
+    boundary slabs of sites, against scipy: the merged-view Gram contracts
+    to the k x k X Y^T of the flat fields."""
     op = dirac_cbdia(8, m=0.5, bc="periodic", dtype=jnp.float32)
-    ops = detect_slabs(op, max_frac=0.6)
+    a = bdia_scipy(op.to_block_dia())
     rng = np.random.default_rng(12)
     Xt = jnp.asarray(rng.standard_normal((4, op.n)), dtype=jnp.float32)
-    Y, G = ops.matmat_gram_t(Xt, interpret=True)
-    want_y = op.matmat_t(Xt, interpret=True)
+    Ym, G = op.matmat_gram_t(op.to_internal(Xt))
+    Y = op.from_internal(Ym)
+    want_y = (a @ np.asarray(Xt, np.float64).T).T
+    np.testing.assert_allclose(np.asarray(Y), want_y, rtol=1e-5, atol=1e-5)
+    want_g = np.asarray(Xt, np.float64) @ np.asarray(want_y, np.float64).T
+    np.testing.assert_allclose(np.asarray(G), want_g, rtol=1e-4, atol=1e-3)
+
+
+def test_cbdia_matmat_gram_odd_k_falls_back():
+    """Odd k (m = bs*k = 12): the Gram is still returned, k x k."""
+    op = dirac_cbdia(4, m=0.5, bc="periodic", dtype=jnp.float32)
+    rng = np.random.default_rng(13)
+    Xt = jnp.asarray(rng.standard_normal((3, op.n)), dtype=jnp.float32)
+    Y, G = op.matmat_gram_t(Xt)
+    want_y = op.matmat_t(Xt)
     np.testing.assert_allclose(np.asarray(Y), np.asarray(want_y),
                                rtol=1e-5, atol=1e-5)
     want_g = np.asarray(Xt, np.float64) @ np.asarray(want_y, np.float64).T
     np.testing.assert_allclose(np.asarray(G), want_g, rtol=1e-4, atol=1e-3)
 
 
-def test_cbdia_matmat_gram_odd_k_falls_back():
-    """m = bs*k not a multiple of 8: fused path unavailable, (Y, None)."""
-    op = dirac_cbdia(4, m=0.5, bc="periodic", dtype=jnp.float32)
-    rng = np.random.default_rng(13)
-    Xt = jnp.asarray(rng.standard_normal((3, op.n)), dtype=jnp.float32)
-    Y, G = op.matmat_gram_t(Xt, interpret=True)
-    assert G is None
-    want_y = op.matmat_t(Xt, interpret=True)
-    np.testing.assert_allclose(np.asarray(Y), np.asarray(want_y),
-                               rtol=1e-5, atol=1e-5)
-
-
 def test_cbdia_merged_kernel_matches_scipy():
-    """Merged spin-major kernel vs the scipy oracle through the operator."""
+    """Merged spin-major apply vs the scipy oracle through the operator."""
     op = dirac_cbdia(4, m=0.5, bc="periodic", dtype=jnp.float32)
     a = bdia_scipy(op.to_block_dia())
     rng = np.random.default_rng(14)
@@ -169,7 +137,7 @@ def test_cbdia_merged_kernel_matches_scipy():
     X = rng.standard_normal((op.n, k)).astype(np.float32)
     Xm = op.to_internal(jnp.asarray(X.T))
     assert Xm.shape == (op.bs * k, op.ns)
-    Ym = op.matmat_t(Xm, interpret=True)
+    Ym = op.matmat_t(Xm)
     Yt = op.from_internal(Ym)
     want = a @ X
     err = np.abs(np.asarray(Yt).T - want).max() / np.abs(want).max()
@@ -177,11 +145,15 @@ def test_cbdia_merged_kernel_matches_scipy():
 
 
 def test_cbdia_k1_merged_uses_legacy_kernel():
-    """k=1 (m=bs not 8-aligned): free reshape routes to the 3D kernel."""
+    """k=1 (the CG path): the merged (bs, ns) view equals the flat apply."""
     op = dirac_cbdia(4, m=0.5, bc="periodic", dtype=jnp.float32)
     rng = np.random.default_rng(15)
     Xm = jnp.asarray(rng.standard_normal((op.bs, op.ns)), dtype=jnp.float32)
-    got = op.matmat_t(Xm, interpret=True)   # kernel path (interpret)
-    want = op._matmat_m_xla(Xm)
+    got = op.matmat_t(Xm)
+    want = op.to_internal(op.matmat_t(op.from_internal(Xm)))
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+    a = bdia_scipy(op.to_block_dia())
+    want_np = a @ np.asarray(op.from_internal(Xm), np.float64)[0]
+    np.testing.assert_allclose(np.asarray(op.from_internal(got))[0], want_np,
                                rtol=1e-5, atol=1e-5)

@@ -3,10 +3,10 @@
 import numpy as np
 import jax.numpy as jnp
 
-import blockcg_tpu as bc
-from blockcg_tpu.operators import DenseOperator
-from blockcg_tpu.problems import random_spd
-from blockcg_tpu.utils.debug import checked_operator, run_checked
+import blockcg as bc
+from blockcg.operators import DenseOperator
+from blockcg.problems import random_spd
+from blockcg.utils.debug import checked_operator, run_checked
 
 
 def test_checked_clean_solve_passes():
@@ -40,9 +40,9 @@ def test_metrics_timed_solve_and_jsonl(tmp_path):
     log_jsonl appends one line per record."""
     import json
 
-    import blockcg_tpu as bc
-    from blockcg_tpu.problems import laplacian_dia
-    from blockcg_tpu.utils.metrics import log_jsonl, timed_solve
+    import blockcg as bc
+    from blockcg.problems import laplacian_dia
+    from blockcg.utils.metrics import log_jsonl, timed_solve
 
     op = laplacian_dia((32, 32), dtype=jnp.float32)
     rng = np.random.default_rng(60)
@@ -60,7 +60,7 @@ def test_metrics_timed_solve_and_jsonl(tmp_path):
 
 
 def test_checkpoint_roundtrip(tmp_path):
-    from blockcg_tpu.utils.checkpoint import load_checkpoint, save_checkpoint
+    from blockcg.utils.checkpoint import load_checkpoint, save_checkpoint
 
     rng = np.random.default_rng(61)
     X = rng.standard_normal((64, 3)).astype(np.float32)
@@ -75,9 +75,9 @@ def test_checkpoint_roundtrip(tmp_path):
 
 
 def test_convergence_history_trim():
-    import blockcg_tpu as bc
-    from blockcg_tpu.problems import laplacian_dia
-    from blockcg_tpu.utils.metrics import convergence_history
+    import blockcg as bc
+    from blockcg.problems import laplacian_dia
+    from blockcg.utils.metrics import convergence_history
 
     op = laplacian_dia((32, 32), dtype=jnp.float32)
     rng = np.random.default_rng(62)

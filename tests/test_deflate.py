@@ -1,6 +1,6 @@
 """Converged-column deflation (T-C4, solvers/deflate.py).
 
-SURVEY.md §8 hard part 4 / VERDICT round-1 item 2: with spread-difficulty
+SURVEY.md §8 hard part 4: with spread-difficulty
 RHS the worst column keeps the whole block iterating; deflation must (a)
 still converge every column, (b) cut the bandwidth-weighted SpMM work
 (matvec_cols) vs the fixed-width solve, (c) report per-RHS iteration counts.
@@ -11,8 +11,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from blockcg_tpu import solve_sbcgrq, solve_sbcgrq_deflated
-from blockcg_tpu.problems import laplacian_dia, laplacian_scipy, random_block
+from blockcg import solve_sbcgrq, solve_sbcgrq_deflated
+from blockcg.problems import laplacian_dia, laplacian_scipy, random_block
 
 
 def _spread_rhs(shape, k_easy, k_hard, seed=0):
@@ -67,7 +67,7 @@ def test_deflated_converges_and_cuts_matvec_cols():
     assert _true_relres(a, Xd, B).max() <= max(
         2 * _true_relres(a, Xf, B).max(), 5 * tol
     )
-    # VERDICT round-1 "done" bar: >= 15% matvec-bandwidth reduction on a
+    # The "done" bar: >= 15% matvec-bandwidth reduction on a
     # spread-difficulty block vs the fixed-width solve.
     fixed_cols = int(inf_f.matvecs) * B.shape[1]
     defl_cols = int(inf_d.matvec_cols)
@@ -106,7 +106,7 @@ def test_deflated_block_codec_operator():
     """Deflation restarts re-enter to_internal at every width — exercise a
     merged spin-major codec operator (coeff algebra must stay k x k at each
     stage width)."""
-    from blockcg_tpu.problems import dirac_cbdia
+    from blockcg.problems import dirac_cbdia
 
     op = dirac_cbdia(6, m=1.0, dtype=jnp.float32)
     rng = np.random.default_rng(5)
@@ -144,7 +144,7 @@ def test_deflated_dist_matches_single():
 
     if len(jax.devices()) < 4:
         pytest.skip("needs the multi-device (fake CPU) mesh")
-    from blockcg_tpu.parallel import (
+    from blockcg.parallel import (
         partition_dia, row_mesh, solve_sbcgrq_deflated_dist,
         solve_sbcgrq_dist,
     )
@@ -178,12 +178,11 @@ def test_deflated_dist_matches_single():
 
 
 def test_small_n_auto_defaults_to_fixed_width(monkeypatch):
-    """Auto mode on a HIGH-LATENCY device skips halving below the measured
-    n threshold (chip A/B, CHIP_QUEUE_r4.log probe-deflation-postgate:
-    0.25x at 262k vs 1.01x at 2.1M — the exploratory restart's ~8 x 30 ms
-    dispatches dwarf a small solve). Simulated here by faking the latency
-    cache; on CPU (us dispatch) the normal tests above keep halving on."""
-    from blockcg_tpu.solvers import deflate
+    """Auto mode on a HIGH-LATENCY device skips halving below the n
+    threshold (the exploratory restart's ~8 slow dispatches dwarf a small
+    solve). Simulated here by faking the latency cache; on CPU (us
+    dispatch) the normal tests above keep halving on."""
+    from blockcg.solvers import deflate
 
     shape = (48, 48)
     op = laplacian_dia(shape, dtype=jnp.float32)

@@ -7,8 +7,8 @@ changes may legitimately move counts by an iteration or two)."""
 import numpy as np
 import jax.numpy as jnp
 
-import blockcg_tpu as bc
-from blockcg_tpu.problems import laplacian_dia
+import blockcg as bc
+from blockcg.problems import laplacian_dia
 
 
 def _B(n, k, seed=42):

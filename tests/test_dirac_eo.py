@@ -4,10 +4,14 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-import blockcg_tpu as bc
-from blockcg_tpu.problems import dirac_bdia, dirac_eo, eo_split, solve_dirac_eo
-from blockcg_tpu.problems.dirac import bdia_scipy
-from blockcg_tpu.problems.dirac_eo import _site_rows
+import blockcg as bc
+from blockcg.problems import dirac_bdia, dirac_eo, eo_split, solve_dirac_eo
+from blockcg.problems.dirac import bdia_scipy
+
+
+def _site_rows(sites: np.ndarray, ns: int, bs: int) -> np.ndarray:
+    """Spin-major full rows (a*ns + s) for the given sites, all spins."""
+    return (np.arange(bs)[:, None] * ns + sites[None, :]).reshape(-1)
 
 
 def _blocks_of_A(L, bc, dtype=jnp.float64):
@@ -64,7 +68,6 @@ def test_eo_halves_iterations():
     assert int(i_eo.iterations) < int(i_full.iterations)
 
 
-@pytest.mark.needs_complex
 def test_eo_complex():
     L = 4
     eo = dirac_eo(L, m=0.5, dtype=jnp.complex128)
@@ -77,7 +80,7 @@ def test_eo_complex():
 
 
 def test_eo_f32_pallas_interpret():
-    """f32 path through the const kernels (interpret on CPU)."""
+    """f32 path through the const-hop parity hops."""
     L = 4
     eo = dirac_eo(L, m=0.5, dtype=jnp.float32)
     a = bdia_scipy(dirac_bdia(L, m=0.5, dtype=jnp.float64))
@@ -93,7 +96,7 @@ def test_eo_inner_refinement_to_1e12():
     """1e-12 on the lattice operator: f64-outer refinement with the even-odd
     Schur solve as the f32 inner engine (composition of T-C5 and the EO
     reduction)."""
-    import blockcg_tpu as bc
+    import blockcg as bc
 
     L, m = 4, 0.5
     op = dirac_bdia(L, m=m, dtype=jnp.float32)  # f32 compute operator
@@ -120,10 +123,10 @@ def test_eo_inner_refinement_to_1e12():
 
 def test_gauged_eo_solve_matches_full():
     """Gauged Z2 even-odd Schur solve == direct gauged solve."""
-    import blockcg_tpu as bc
-    from blockcg_tpu.problems import dirac_gauged, dirac_gauged_eo
-    from blockcg_tpu.problems.dirac import bdia_scipy
-    from blockcg_tpu.problems.dirac_eo import solve_dirac_eo
+    import blockcg as bc
+    from blockcg.problems import dirac_gauged, dirac_gauged_eo
+    from blockcg.problems.dirac import bdia_scipy
+    from blockcg.problems.dirac_eo import solve_dirac_eo
 
     L = 4
     eo = dirac_gauged_eo(L, m=0.5, dtype=jnp.float64)
@@ -142,9 +145,9 @@ def test_gauged_eo_solve_matches_full():
 
 
 def test_gauged_eo_open_bc():
-    from blockcg_tpu.problems import dirac_gauged, dirac_gauged_eo
-    from blockcg_tpu.problems.dirac import bdia_scipy
-    from blockcg_tpu.problems.dirac_eo import solve_dirac_eo
+    from blockcg.problems import dirac_gauged, dirac_gauged_eo
+    from blockcg.problems.dirac import bdia_scipy
+    from blockcg.problems.dirac_eo import solve_dirac_eo
 
     L = 4
     eo = dirac_gauged_eo(L, m=0.5, bc="open", dtype=jnp.float64)
@@ -160,9 +163,9 @@ def test_gauged_eo_open_bc():
 
 
 def test_gauged_eo_f32_solve():
-    """f32 end-to-end gauged even-odd solve (on-chip smoke eligible)."""
-    from blockcg_tpu.problems import dirac_gauged, dirac_gauged_eo
-    from blockcg_tpu.problems.dirac_eo import solve_dirac_eo
+    """f32 end-to-end gauged even-odd solve."""
+    from blockcg.problems import dirac_gauged, dirac_gauged_eo
+    from blockcg.problems.dirac_eo import solve_dirac_eo
 
     L = 4
     eo = dirac_gauged_eo(L, m=0.5, dtype=jnp.float32)
@@ -179,9 +182,9 @@ def test_gauged_eo_f32_solve():
 def test_gauged_eo_u1_solve_matches_full():
     """U(1) gauged even-odd (realified half-lattice hops) == direct
     complex gauged solve."""
-    from blockcg_tpu.problems import dirac_gauged, dirac_gauged_eo
-    from blockcg_tpu.problems.dirac import bdia_scipy
-    from blockcg_tpu.problems.dirac_eo import solve_dirac_eo
+    from blockcg.problems import dirac_gauged, dirac_gauged_eo
+    from blockcg.problems.dirac import bdia_scipy
+    from blockcg.problems.dirac_eo import solve_dirac_eo
 
     L = 4
     eo = dirac_gauged_eo(L, m=0.5, dtype=jnp.complex128)
@@ -199,10 +202,10 @@ def test_gauged_eo_u1_solve_matches_full():
 def test_shifted_eo_matches_direct_shifted_solves():
     """Multi-shift even-odd: one Krylov space solves (A + sigma_j) X = B for
     all shifts, matching direct per-shift solves of the FULL operator."""
-    import blockcg_tpu as bc
-    from blockcg_tpu.problems import dirac_cbdia, dirac_eo
-    from blockcg_tpu.problems.dirac import bdia_scipy
-    from blockcg_tpu.problems.dirac_eo import solve_dirac_eo_shifted
+    import blockcg as bc
+    from blockcg.problems import dirac_cbdia, dirac_eo
+    from blockcg.problems.dirac import bdia_scipy
+    from blockcg.problems.dirac_eo import solve_dirac_eo_shifted
 
     L = 4
     eo = dirac_eo(L, m=0.5, dtype=jnp.float64)
@@ -222,9 +225,9 @@ def test_shifted_eo_matches_direct_shifted_solves():
 
 def test_shifted_eo_gauged():
     """Gauged (Z2) multi-shift even-odd solves."""
-    from blockcg_tpu.problems import dirac_gauged, dirac_gauged_eo
-    from blockcg_tpu.problems.dirac import bdia_scipy
-    from blockcg_tpu.problems.dirac_eo import solve_dirac_eo_shifted
+    from blockcg.problems import dirac_gauged, dirac_gauged_eo
+    from blockcg.problems.dirac import bdia_scipy
+    from blockcg.problems.dirac_eo import solve_dirac_eo_shifted
 
     L = 4
     eo = dirac_gauged_eo(L, m=0.5, dtype=jnp.float64)
@@ -243,9 +246,9 @@ def test_shifted_eo_gauged():
 
 def test_shifted_eo_u1_complex():
     """U(1) multi-shift even-odd through the realified codec."""
-    from blockcg_tpu.problems import dirac_gauged, dirac_gauged_eo
-    from blockcg_tpu.problems.dirac import bdia_scipy
-    from blockcg_tpu.problems.dirac_eo import solve_dirac_eo_shifted
+    from blockcg.problems import dirac_gauged, dirac_gauged_eo
+    from blockcg.problems.dirac import bdia_scipy
+    from blockcg.problems.dirac_eo import solve_dirac_eo_shifted
 
     L = 4
     eo = dirac_gauged_eo(L, m=0.5, dtype=jnp.complex128)
@@ -265,8 +268,8 @@ def test_shifted_eo_u1_complex():
 def test_gauged_matrix_eo_hops_match_A_blocks():
     """Matrix-link parity hops == the full matrix's even/odd off-diagonal
     blocks (sign convention A = cI - H)."""
-    from blockcg_tpu.problems import dirac_gauged_matrix
-    from blockcg_tpu.problems.dirac_eo import dirac_gauged_matrix_eo
+    from blockcg.problems import dirac_gauged_matrix
+    from blockcg.problems.dirac_eo import dirac_gauged_matrix_eo
 
     L = 4
     full = dirac_gauged_matrix(L, m=0.5, dtype=jnp.float64)
@@ -292,8 +295,8 @@ def test_gauged_matrix_eo_hops_match_A_blocks():
 def test_gauged_matrix_eo_solve_matches_full(bc):
     """Matrix-link even-odd Schur solve == direct solve of the full
     matrix-link operator, and Schur cuts the iteration count."""
-    from blockcg_tpu.problems import dirac_gauged_matrix
-    from blockcg_tpu.problems.dirac_eo import dirac_gauged_matrix_eo
+    from blockcg.problems import dirac_gauged_matrix
+    from blockcg.problems.dirac_eo import dirac_gauged_matrix_eo
 
     L = 4
     eo = dirac_gauged_matrix_eo(L, m=0.5, bc=bc, dtype=jnp.float64)
@@ -306,7 +309,7 @@ def test_gauged_matrix_eo_solve_matches_full(bc):
     rel = (np.linalg.norm(R, axis=0)
            / np.linalg.norm(np.asarray(B), axis=0)).max()
     assert rel < 1e-9
-    from blockcg_tpu.solvers.sbcgrq import solve_sbcgrq
+    from blockcg.solvers.sbcgrq import solve_sbcgrq
 
     _, i_full = solve_sbcgrq(full, B, tol=1e-11, max_iter=500)
     assert int(info.iterations) < int(i_full.iterations)
@@ -314,9 +317,9 @@ def test_gauged_matrix_eo_solve_matches_full(bc):
 
 def test_gauged_matrix_eo_f32_solve():
     """f32 end-to-end matrix-link even-odd solve through the general block
-    kernels (interpret on CPU; on-chip smoke eligible)."""
-    from blockcg_tpu.problems import dirac_gauged_matrix
-    from blockcg_tpu.problems.dirac_eo import dirac_gauged_matrix_eo
+    operator."""
+    from blockcg.problems import dirac_gauged_matrix
+    from blockcg.problems.dirac_eo import dirac_gauged_matrix_eo
 
     L = 4
     eo = dirac_gauged_matrix_eo(L, m=0.5, dtype=jnp.float32)

@@ -6,15 +6,14 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
-import blockcg_tpu as bc
-from blockcg_tpu.problems import dirac_cbdia, dirac_bdia
-from blockcg_tpu.problems.dirac import bdia_scipy
-from blockcg_tpu.parallel import partition_cbdia, row_mesh, solve_sbcgrq_dist
+import blockcg as bc
+from blockcg.problems import dirac_cbdia, dirac_bdia
+from blockcg.problems.dirac import bdia_scipy
+from blockcg.parallel import partition_cbdia, row_mesh, solve_sbcgrq_dist
 
-try:
-    shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+shard_map = jax.shard_map
+
+pytestmark = pytest.mark.usefixtures("mesh8")
 
 D = 8
 
@@ -99,8 +98,8 @@ def test_partition_cbdia_masked_crossing_open_bc():
 
 
 def test_dist_cbdia_shifted_matches_single():
-    from blockcg_tpu.parallel import solve_shifted_sbcgrq_dist
-    from blockcg_tpu.solvers.shifted_block import solve_shifted_sbcgrq
+    from blockcg.parallel import solve_shifted_sbcgrq_dist
+    from blockcg.solvers.shifted_block import solve_shifted_sbcgrq
 
     op = _op()
     dop = partition_cbdia(op, D)
@@ -116,8 +115,8 @@ def test_dist_cbdia_shifted_matches_single():
 
 
 def test_dist_cbdia_fused_gram_matches_global():
-    """Distributed fused matmat+gram (interpret kernels on the fake mesh):
-    psum of local Grams == global X^T (A X)."""
+    """Distributed matmat+gram on the fake mesh: psum of local Grams ==
+    global X^T (A X)."""
     from jax import lax
 
     op = _op()
@@ -130,7 +129,7 @@ def test_dist_cbdia_fused_gram_matches_global():
     Xs = jax.device_put(Xm, jax.NamedSharding(mesh, P(None, "rows")))
 
     def body(o, x):
-        y, gl = o.matmat_gram_t(x, interpret=True)
+        y, gl = o.matmat_gram_t(x)
         assert gl is not None
         return y, lax.psum(gl, "rows")
 
@@ -155,7 +154,7 @@ def test_dist_cbdia_fused_gram_matches_global():
 def test_dist_gauged_cbdia_matches_global():
     """Gauged (Z2 value-masked) operator partitioned over shards: crossing
     diagonals carry edge link values into the halo correction."""
-    from blockcg_tpu.problems import dirac_gauged_cbdia
+    from blockcg.problems import dirac_gauged_cbdia
 
     op = dirac_gauged_cbdia(8, m=0.5, dtype=jnp.float32)
     dop = partition_cbdia(op, D)
@@ -180,7 +179,7 @@ def test_dist_gauged_cbdia_matches_global():
 
 
 def test_dist_gauged_cbdia_solve_matches_single():
-    from blockcg_tpu.problems import dirac_gauged_cbdia
+    from blockcg.problems import dirac_gauged_cbdia
 
     op = dirac_gauged_cbdia(8, m=0.5, dtype=jnp.float32)
     dop = partition_cbdia(op, D)
@@ -196,7 +195,7 @@ def test_dist_gauged_cbdia_solve_matches_single():
 def test_dist_gauged_fused_gram_matches_global():
     from jax import lax
 
-    from blockcg_tpu.problems import dirac_gauged_cbdia
+    from blockcg.problems import dirac_gauged_cbdia
 
     op = dirac_gauged_cbdia(8, m=0.5, dtype=jnp.float32)
     dop = partition_cbdia(op, D)
@@ -208,7 +207,7 @@ def test_dist_gauged_fused_gram_matches_global():
     Xs = jax.device_put(Xm, jax.NamedSharding(mesh, P(None, "rows")))
 
     def body(o, x):
-        y, gl = o.matmat_gram_t(x, interpret=True)
+        y, gl = o.matmat_gram_t(x)
         assert gl is not None
         return y, lax.psum(gl, "rows")
 
@@ -231,9 +230,9 @@ def test_dist_gauged_fused_gram_matches_global():
 def test_dist_schur_eo_solve_matches_single():
     """Distributed even-odd Schur solve (two halo rounds per apply) on the
     fake mesh == single-device Schur solve. Gauged (Z2) variant."""
-    from blockcg_tpu.parallel import partition_dirac_eo
-    from blockcg_tpu.problems import dirac_gauged_eo
-    from blockcg_tpu.problems.dirac_eo import dirac_eo
+    from blockcg.parallel import partition_dirac_eo
+    from blockcg.problems import dirac_gauged_eo
+    from blockcg.problems.dirac_eo import dirac_eo
 
     for eo in (dirac_eo(8, m=0.5, dtype=jnp.float32),
                dirac_gauged_eo(8, m=0.5, dtype=jnp.float32)):
@@ -251,8 +250,8 @@ def test_dist_schur_eo_solve_matches_single():
 
 def test_solve_dirac_eo_dist_end_to_end():
     """Full distributed EO pipeline: split -> dist Schur -> reconstruct."""
-    from blockcg_tpu.problems import dirac_gauged, dirac_gauged_eo
-    from blockcg_tpu.problems.dirac_eo import solve_dirac_eo_dist
+    from blockcg.problems import dirac_gauged, dirac_gauged_eo
+    from blockcg.problems.dirac_eo import solve_dirac_eo_dist
 
     eo = dirac_gauged_eo(8, m=0.5, dtype=jnp.float32)
     full = dirac_gauged(8, m=0.5, dtype=jnp.float32)
@@ -269,8 +268,8 @@ def test_solve_dirac_eo_dist_end_to_end():
 def test_dist_gauged_f64_cross_vals_exact():
     """Regression: crossing edge values keep the mask dtype (f64 links were
     once truncated to f32, flooring distributed accuracy at ~1e-8)."""
-    from blockcg_tpu.problems import dirac_gauged_eo
-    from blockcg_tpu.parallel import partition_dirac_eo
+    from blockcg.problems import dirac_gauged_eo
+    from blockcg.parallel import partition_dirac_eo
 
     eo = dirac_gauged_eo(8, m=0.5, dtype=jnp.complex128)
     dschur = partition_dirac_eo(eo, D)
@@ -297,12 +296,12 @@ def test_dist_gauged_f64_cross_vals_exact():
 def test_dist_eo_normal_shifted_matches_single():
     """Distributed multi-shift EO base operator: shifted block solve over
     the fake mesh == single-device."""
-    from blockcg_tpu.operators.schur import EONormalOperator
-    from blockcg_tpu.parallel import (
+    from blockcg.operators.schur import EONormalOperator
+    from blockcg.parallel import (
         DistEONormalOperator, partition_cbdia, solve_shifted_sbcgrq_dist,
     )
-    from blockcg_tpu.problems.dirac_eo import dirac_gauged_eo
-    from blockcg_tpu.solvers.shifted_block import solve_shifted_sbcgrq
+    from blockcg.problems.dirac_eo import dirac_gauged_eo
+    from blockcg.solvers.shifted_block import solve_shifted_sbcgrq
 
     eo = dirac_gauged_eo(8, m=0.5, dtype=jnp.float32)
     mu0 = (eo.c + 0.0) ** 2

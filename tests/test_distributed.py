@@ -11,8 +11,8 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from blockcg_tpu import solve_cg, solve_sbcgrq
-from blockcg_tpu.parallel import (
+from blockcg import solve_cg, solve_sbcgrq
+from blockcg.parallel import (
     from_dist_order,
     partition_bdia,
     partition_dia,
@@ -22,8 +22,8 @@ from blockcg_tpu.parallel import (
     solve_sbcgrq_dist,
     to_dist_order,
 )
-from blockcg_tpu.parallel.api import shard_map
-from blockcg_tpu.problems import (
+from blockcg.parallel.api import shard_map
+from blockcg.problems import (
     bdia_scipy,
     dirac_bdia,
     laplacian_dia,
@@ -31,9 +31,7 @@ from blockcg_tpu.problems import (
     random_block,
 )
 
-pytestmark = pytest.mark.skipif(
-    len(jax.devices()) < 2, reason="needs the multi-device (fake CPU) mesh"
-)
+pytestmark = pytest.mark.usefixtures("mesh8")
 
 
 def _dist_apply(dop, mesh, Xt):
@@ -91,10 +89,10 @@ def test_partitioned_bdia_spmm_matches_scipy(bc):
 
 def test_partitioned_matrix_link_spmm_matches_scipy():
     """Matrix-valued-link gauged operator, site-sharded: per-site bs x bs
-    block VALUES cross shard edges (VERDICT r4 item 10 — previously only
-    0/1-masked and scalar-link crossings had distributed coverage). The
+    block VALUES cross shard edges (beyond the 0/1-masked and scalar-link
+    crossings of the const-hop partitioner). The
     boundary-correction arrays must carry the full per-site blocks."""
-    from blockcg_tpu.problems import dirac_gauged_matrix
+    from blockcg.problems import dirac_gauged_matrix
 
     L, D, k = 4, 4, 3
     op = dirac_gauged_matrix(L, m=0.5, dtype=jnp.float64)
@@ -112,7 +110,7 @@ def test_partitioned_matrix_link_spmm_matches_scipy():
 def test_solve_sbcgrq_dist_matrix_links():
     """Distributed solve on the matrix-link operator (fake mesh): the full
     row-partitioned pipeline over site-varying block coefficients."""
-    from blockcg_tpu.problems import dirac_gauged_matrix
+    from blockcg.problems import dirac_gauged_matrix
 
     L, D = 4, 4
     op = dirac_gauged_matrix(L, m=0.5, dtype=jnp.float64)
@@ -201,7 +199,7 @@ def test_solve_sbcgrq_dist_bdia_natural_order():
     """Distributed solve through the general block operator in NATURAL
     (spin-major global) ordering via the internal 3D field hooks — no
     to_dist_order permutation needed, no per-apply lane relayout."""
-    from blockcg_tpu.parallel import solve_sbcgrq_dist
+    from blockcg.parallel import solve_sbcgrq_dist
 
     L, D = 4, 4
     op = dirac_bdia(L, m=0.5, dtype=jnp.float32)
@@ -218,8 +216,8 @@ def test_solve_sbcgrq_dist_bdia_natural_order():
 
 
 def test_solve_shifted_sbcgrq_dist_matches_single():
-    from blockcg_tpu.parallel import solve_shifted_sbcgrq_dist
-    from blockcg_tpu.solvers.shifted_block import solve_shifted_sbcgrq
+    from blockcg.parallel import solve_shifted_sbcgrq_dist
+    from blockcg.solvers.shifted_block import solve_shifted_sbcgrq
 
     shape = (32, 32)
     op = laplacian_dia(shape, dtype=jnp.float64)
@@ -240,10 +238,10 @@ def test_solve_psbcgrq_dist_matches_single():
     """Row-sharded preconditioned SBCGrQ (Jacobi on a scaled system)."""
     import scipy.sparse as sp
 
-    from blockcg_tpu.parallel import solve_psbcgrq_dist
-    from blockcg_tpu.solvers.pbcg import jacobi_preconditioner
-    import blockcg_tpu as bc
-    from blockcg_tpu.operators import DIAOperator
+    from blockcg.parallel import solve_psbcgrq_dist
+    from blockcg.solvers.pbcg import jacobi_preconditioner
+    import blockcg as bc
+    from blockcg.operators import DIAOperator
 
     n, D = 1024, 4
     rng = np.random.default_rng(20)
@@ -268,8 +266,8 @@ def test_solve_refined_dist_laplacian_1e10():
     """North-star composition (BASELINE.json north_star): f32 SBCGrQ inner
     solves fully row-sharded + f64 outer true-residual cycles, to 1e-10,
     matching the single-device refinement driver."""
-    from blockcg_tpu import solve_refined
-    from blockcg_tpu.parallel import solve_refined_dist
+    from blockcg import solve_refined
+    from blockcg.parallel import solve_refined_dist
 
     shape = (12, 12, 12)
     op = laplacian_dia(shape, dtype=jnp.float32)
@@ -290,7 +288,7 @@ def test_solve_refined_dist_laplacian_1e10():
 def test_solve_refined_dist_bdia():
     """Distributed refinement through the block-lattice (Dirac-like)
     operator: halo'd block SpMM in the f64 outer cycle as well."""
-    from blockcg_tpu.parallel import solve_refined_dist
+    from blockcg.parallel import solve_refined_dist
 
     L, D = 4, 4
     op = dirac_bdia(L, m=0.5, bc="periodic", dtype=jnp.float32)
@@ -343,8 +341,8 @@ def test_solve_sbcgrq_cheb_dist():
     """Row-sharded Chebyshev-preconditioned solve: fewer iterations (=
     fewer psum/QR rounds — the communication-avoiding trade), true-residual
     certified, matching the plain distributed solve."""
-    from blockcg_tpu.operators.cheb import estimate_spectrum
-    from blockcg_tpu.parallel import solve_sbcgrq_cheb_dist
+    from blockcg.operators.cheb import estimate_spectrum
+    from blockcg.parallel import solve_sbcgrq_cheb_dist
 
     shape = (32, 32)
     op = laplacian_dia(shape, dtype=jnp.float32)
@@ -412,8 +410,8 @@ def test_partition_padded_rejects_periodic_wraps():
     op = dirac_bdia(4, m=0.5, bc="periodic", dtype=jnp.float64)
     with pytest.raises(ValueError, match="wrap"):
         partition_bdia(op, 3)
-    from blockcg_tpu.parallel import partition_cbdia
-    from blockcg_tpu.problems import dirac_cbdia
+    from blockcg.parallel import partition_cbdia
+    from blockcg.problems import dirac_cbdia
 
     opc = dirac_cbdia(8, m=0.5, dtype=jnp.float32)
     with pytest.raises(ValueError, match="[Vv]alid D"):
@@ -421,12 +419,12 @@ def test_partition_padded_rejects_periodic_wraps():
 
 
 def test_solve_sbcgrq_cheb_dist_cycles_history_vector_tol():
-    """Multi-cycle Chebyshev-dist bookkeeping (round-2 advisor fix): a
-    per-column (k,) tol is accepted, per-cycle histories CONCATENATE
-    (not last-cycle-only), and the round-3 aggregates (per_rhs_iters sum,
+    """Multi-cycle Chebyshev-dist bookkeeping: a per-column (k,) tol is
+    accepted, per-cycle histories CONCATENATE (not last-cycle-only), and
+    the aggregates (per_rhs_iters sum,
     breakdown or-reduce) survive the outer python loop."""
-    from blockcg_tpu.operators.cheb import estimate_spectrum
-    from blockcg_tpu.parallel import solve_sbcgrq_cheb_dist
+    from blockcg.operators.cheb import estimate_spectrum
+    from blockcg.parallel import solve_sbcgrq_cheb_dist
 
     shape = (24, 24)
     op = laplacian_dia(shape, dtype=jnp.float32)

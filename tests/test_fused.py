@@ -1,13 +1,26 @@
-"""Fused per-iteration kernel tests (T-K2, ops/fused.py) — interpret mode."""
+"""Block-update helper tests (solvers/common.py ``f_*``) vs numpy float64.
+
+Each helper is the jnp composition XLA compiles for the solvers' per-
+iteration field updates. Shapes cover flat (k, n) fields and the 3D
+(k, bs, ns) view; the ``codec`` cases run the merged spin-major layout of a
+block operator, whose k x k coefficients expand to I_bs (x) C.
+"""
 
 import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from blockcg_tpu.ops import fused
-from blockcg_tpu.solvers.common import (
+from blockcg.solvers.common import (
     cholqr_fused_t,
     cholqr_t,
+    f_gram,
+    f_mm2_update_gram,
+    f_mm_update,
+    f_mm_update_gram,
+    f_px_update,
+    f_qr_p_update,
+    f_qr_px_update,
+    f_xr_update_gram,
     qr_factors_from_gram,
     gram_t,
 )
@@ -23,56 +36,28 @@ def _kk(k, seed):
     return jnp.asarray(rng.standard_normal((k, k)), dtype=jnp.float32)
 
 
-@pytest.mark.parametrize("shape", [(8, 1024), (6, 4, 512), (12, 4, 256)])
+def _f64(a):
+    return np.asarray(a, np.float64)
+
+
+def _mm(m, b):
+    """k x k times field in float64 (tensordot over the leading axis)."""
+    return np.tensordot(_f64(m), _f64(b), axes=(1, 0))
+
+
+def _gram(u, v):
+    k = u.shape[0]
+    return _f64(u).reshape(k, -1) @ _f64(v).reshape(k, -1).T
+
+
+@pytest.mark.parametrize("shape", [(8, 1024), (6, 4, 512), (12, 4, 256),
+                                   (2, (1 << 20) + (1 << 14))])
 def test_gram(shape):
+    """The last shape is long enough for the chunked partial-Gram sum."""
     U, V = _field(shape, 0), _field(shape, 1)
-    G = fused.gram(U, V, interpret=True)
-    k = shape[0]
-    want = np.asarray(U, np.float64).reshape(k, -1) @ np.asarray(
-        V, np.float64).reshape(k, -1).T
-    np.testing.assert_allclose(np.asarray(G), want, rtol=1e-5, atol=1e-4)
-
-
-@pytest.mark.parametrize("shape", [(8, 1024), (6, 4, 512)])
-def test_gram_seeded(shape):
-    """Additive (k, k) seed input — the bandwidth calibrator's loop-carry
-    hook (bench.py calibrate_bw: a real in-kernel data dependence is the
-    only reliable anti-hoisting device for timing loops)."""
-    U, V = _field(shape, 0), _field(shape, 1)
-    k = shape[0]
-    S = _kk(k, 7)
-    G = fused.gram(U, V, S, interpret=True)
-    want = np.asarray(S, np.float64) + np.asarray(
-        U, np.float64).reshape(k, -1) @ np.asarray(
-        V, np.float64).reshape(k, -1).T
-    np.testing.assert_allclose(np.asarray(G), want, rtol=1e-5, atol=1e-4)
-
-
-@pytest.mark.parametrize("shape", [(8, 1024), (6, 4, 512)])
-def test_donated_kernels_match_undonated(shape):
-    """input_output_aliases (the in-place HBM-write fast path) must be
-    semantics-free: donated and fresh-output runs agree bitwise in
-    interpret mode."""
-    k = shape[0]
-    M1, rho, C = _kk(k, 10), _kk(k, 11), _kk(k, 12)
-    W, P, X = _field(shape, 13), _field(shape, 14), _field(shape, 15)
-    a = fused.px_update(M1, W, rho, P, C, X, interpret=True)
-    b = fused.px_update(M1, W, rho, P, C, X, interpret=True, donate=True)
-    for u, v in zip(a, b):
-        np.testing.assert_array_equal(np.asarray(u), np.asarray(v))
-    a = fused.mm2_update_gram(M1, W, rho, P, interpret=True)
-    b = fused.mm2_update_gram(M1, W, rho, P, interpret=True, donate=True)
-    for u, v in zip(a, b):
-        np.testing.assert_array_equal(np.asarray(u), np.asarray(v))
-    a = fused.mm_update(M1, W, X, interpret=True)
-    b = fused.mm_update(M1, W, X, interpret=True, donate="a")
-    c = fused.mm_update(M1, W, X, interpret=True, donate="b")
-    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    np.testing.assert_array_equal(np.asarray(a), np.asarray(c))
-    a = fused.qr_px_update(M1, W, rho, P, C, X, interpret=True)
-    b = fused.qr_px_update(M1, W, rho, P, C, X, interpret=True, donate=True)
-    for u, v in zip(a, b):
-        np.testing.assert_array_equal(np.asarray(u), np.asarray(v))
+    G = f_gram(U, V)
+    np.testing.assert_allclose(np.asarray(G), _gram(U, V), rtol=1e-5,
+                               atol=1e-4)
 
 
 @pytest.mark.parametrize("shape", [(8, 1024), (6, 4, 512)])
@@ -81,11 +66,10 @@ def test_mm_update(shape, with_a):
     k = shape[0]
     M, B = _kk(k, 2), _field(shape, 3)
     A = _field(shape, 4) if with_a else None
-    Y = fused.mm_update(M, B, A, interpret=True)
-    want = np.tensordot(np.asarray(M, np.float64), np.asarray(B, np.float64),
-                        axes=(1, 0))
+    Y = f_mm_update(M, B, A)
+    want = _mm(M, B)
     if with_a:
-        want = want + np.asarray(A, np.float64)
+        want = want + _f64(A)
     np.testing.assert_allclose(np.asarray(Y), want, rtol=1e-5, atol=1e-4)
 
 
@@ -95,11 +79,10 @@ def test_mm_update_gram(shape, with_a):
     k = shape[0]
     M, B = _kk(k, 5), _field(shape, 6)
     A = _field(shape, 7) if with_a else None
-    Y, G = fused.mm_update_gram(M, B, A, interpret=True)
-    want = np.tensordot(np.asarray(M, np.float64), np.asarray(B, np.float64),
-                        axes=(1, 0))
+    Y, G = f_mm_update_gram(M, B, A)
+    want = _mm(M, B)
     if with_a:
-        want = want + np.asarray(A, np.float64)
+        want = want + _f64(A)
     np.testing.assert_allclose(np.asarray(Y), want, rtol=1e-5, atol=1e-4)
     wantG = want.reshape(k, -1) @ want.reshape(k, -1).T
     np.testing.assert_allclose(np.asarray(G), wantG, rtol=1e-4, atol=1e-2)
@@ -110,11 +93,9 @@ def test_qr_p_update(shape):
     k = shape[0]
     M2, rho = _kk(k, 8), _kk(k, 9)
     Q1, P = _field(shape, 10), _field(shape, 11)
-    Q, Pn = fused.qr_p_update(M2, Q1, rho, P, interpret=True)
-    wq = np.tensordot(np.asarray(M2, np.float64), np.asarray(Q1, np.float64),
-                      axes=(1, 0))
-    wp = wq + np.tensordot(np.asarray(rho, np.float64),
-                           np.asarray(P, np.float64), axes=(1, 0))
+    Q, Pn = f_qr_p_update(M2, Q1, rho, P)
+    wq = _mm(M2, Q1)
+    wp = wq + _mm(rho, P)
     np.testing.assert_allclose(np.asarray(Q), wq, rtol=1e-5, atol=1e-4)
     np.testing.assert_allclose(np.asarray(Pn), wp, rtol=1e-5, atol=1e-4)
 
@@ -125,10 +106,8 @@ def test_mm2_update_gram(shape):
     k = shape[0]
     M1, M2 = _kk(k, 30), _kk(k, 31)
     B1, B2 = _field(shape, 32), _field(shape, 33)
-    Y, G = fused.mm2_update_gram(M1, B1, M2, B2, interpret=True)
-    m1, m2 = np.asarray(M1, np.float64), np.asarray(M2, np.float64)
-    b1, b2 = np.asarray(B1, np.float64), np.asarray(B2, np.float64)
-    want = np.tensordot(m1, b1, axes=(1, 0)) + np.tensordot(m2, b2, axes=(1, 0))
+    Y, G = f_mm2_update_gram(M1, B1, M2, B2)
+    want = _mm(M1, B1) + _mm(M2, B2)
     np.testing.assert_allclose(np.asarray(Y), want, rtol=1e-5, atol=1e-4)
     wantG = want.reshape(k, -1) @ want.reshape(k, -1).T
     np.testing.assert_allclose(np.asarray(G), wantG, rtol=1e-4, atol=1e-2)
@@ -140,16 +119,11 @@ def test_px_update(shape):
     k = shape[0]
     M1, rho, C = _kk(k, 40), _kk(k, 41), _kk(k, 42)
     W, P, X = _field(shape, 43), _field(shape, 44), _field(shape, 45)
-    Pn, Xn = fused.px_update(M1, W, rho, P, C, X, interpret=True)
-    m1, rh, cc = (np.asarray(a, np.float64) for a in (M1, rho, C))
-    w, p, x = (np.asarray(a, np.float64) for a in (W, P, X))
-    np.testing.assert_allclose(
-        np.asarray(Pn),
-        np.tensordot(m1, w, axes=(1, 0)) + np.tensordot(rh, p, axes=(1, 0)),
-        rtol=1e-5, atol=1e-4)
-    np.testing.assert_allclose(
-        np.asarray(Xn), x + np.tensordot(cc, p, axes=(1, 0)),
-        rtol=1e-5, atol=1e-4)
+    Pn, Xn = f_px_update(M1, W, rho, P, C, X)
+    np.testing.assert_allclose(np.asarray(Pn), _mm(M1, W) + _mm(rho, P),
+                               rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(np.asarray(Xn), _f64(X) + _mm(C, P),
+                               rtol=1e-5, atol=1e-4)
 
 
 def test_qr_factors_from_gram_matches_cholqr():
@@ -167,7 +141,7 @@ def test_qr_factors_from_gram_matches_cholqr():
 
 
 def test_cholqr_fused_matches_cholqr_t():
-    """Fallback path of cholqr_fused_t == cholqr_t (same math, CPU)."""
+    """cholqr_fused_t (Gram-deferred passes) == cholqr_t (same math)."""
     Vt = _field((6, 2048), 13)
     Q1, R1 = cholqr_fused_t(Vt, passes=2)
     Q2, R2 = cholqr_t(Vt, passes=2)
@@ -182,25 +156,19 @@ def test_qr_px_update(shape):
     k = shape[0]
     M2, rho, C = _kk(k, 20), _kk(k, 21), _kk(k, 22)
     Q1, P, X = _field(shape, 23), _field(shape, 24), _field(shape, 25)
-    Q, Pn, Xn = fused.qr_px_update(M2, Q1, rho, P, C, X, interpret=True)
-    m2, rh, cc = (np.asarray(a, np.float64) for a in (M2, rho, C))
-    q1, p, x = (np.asarray(a, np.float64) for a in (Q1, P, X))
-    want_q = np.tensordot(m2, q1, axes=(1, 0))
+    Q, Pn, Xn = f_qr_px_update(M2, Q1, rho, P, C, X)
+    want_q = _mm(M2, Q1)
     np.testing.assert_allclose(np.asarray(Q), want_q, rtol=1e-5, atol=1e-4)
-    np.testing.assert_allclose(
-        np.asarray(Pn), want_q + np.tensordot(rh, p, axes=(1, 0)),
-        rtol=1e-5, atol=1e-4)
-    np.testing.assert_allclose(
-        np.asarray(Xn), x + np.tensordot(cc, p, axes=(1, 0)),
-        rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(np.asarray(Pn), want_q + _mm(rho, P),
+                               rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(np.asarray(Xn), _f64(X) + _mm(C, P),
+                               rtol=1e-5, atol=1e-4)
 
 
 @pytest.mark.parametrize("shape", [(8, 1024), (6, 4, 512)])
 def test_fused_xr_update_gram(shape):
-    """Xn = X + aP, Rn = R - aZ, S' = Rn Rn^T in one stacked-dot pass
-    (the BCG/BCGA tail, round 5) vs the f64 oracle; donated equals fresh."""
-    from blockcg_tpu.ops import fused
-
+    """Xn = X + aP, Rn = R - aZ, S' = Rn Rn^T (the BCG/BCGA tail) vs the
+    f64 oracle."""
     k = shape[0]
     rng = np.random.default_rng(41)
     A = jnp.asarray(rng.standard_normal((k, k)), jnp.float32)
@@ -208,22 +176,84 @@ def test_fused_xr_update_gram(shape):
     X = jnp.asarray(rng.standard_normal(shape), jnp.float32)
     Z = jnp.asarray(rng.standard_normal(shape), jnp.float32)
     R = jnp.asarray(rng.standard_normal(shape), jnp.float32)
-    Xn, Rn, S = fused.xr_update_gram(A, P, X, Z, R, interpret=True)
-    p = np.asarray(P, np.float64).reshape(k, -1)
-    x = np.asarray(X, np.float64).reshape(k, -1)
-    z = np.asarray(Z, np.float64).reshape(k, -1)
-    r = np.asarray(R, np.float64).reshape(k, -1)
-    a = np.asarray(A, np.float64)
-    wantX = x + a @ p
-    wantR = r - a @ z
-    np.testing.assert_allclose(np.asarray(Xn, np.float64).reshape(k, -1),
-                               wantX, rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(Rn, np.float64).reshape(k, -1),
-                               wantR, rtol=1e-5, atol=1e-5)
-    rn = np.asarray(Rn, np.float64).reshape(k, -1)
-    np.testing.assert_allclose(np.asarray(S, np.float64), rn @ rn.T,
+    Xn, Rn, S = f_xr_update_gram(A, P, X, Z, R)
+    p, x, z, r = (_f64(v).reshape(k, -1) for v in (P, X, Z, R))
+    a = _f64(A)
+    np.testing.assert_allclose(_f64(Xn).reshape(k, -1), x + a @ p,
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(_f64(Rn).reshape(k, -1), r - a @ z,
+                               rtol=1e-5, atol=1e-5)
+    rn = _f64(Rn).reshape(k, -1)
+    np.testing.assert_allclose(_f64(S), rn @ rn.T, rtol=1e-5, atol=1e-4)
+
+
+# ------------------------------------------------------------ codec cases --
+# A block operator's merged (m = bs*k, ns) field: the helpers expand the
+# k x k coefficients to I_bs (x) C and contract Grams back to k x k. The
+# oracle works on the flat (k, n) fields, where the same update is plain.
+
+
+def _codec_op():
+    from blockcg.problems import dirac_cbdia
+
+    return dirac_cbdia(4, m=0.5, dtype=jnp.float32)  # bs = 4, ns = 256
+
+
+def _codec_fields(op, k, seeds):
+    flat = [jnp.asarray(np.random.default_rng(s).standard_normal((k, op.n)),
+                        jnp.float32) for s in seeds]
+    return flat, [op.to_internal(f) for f in flat]
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_codec_mm_update_gram(k):
+    op = _codec_op()
+    (B, A), (Bm, Am) = _codec_fields(op, k, (50, 51))
+    M = _kk(k, 52)
+    Ym, G = f_mm_update_gram(M, Bm, Am, codec=op)
+    want = _f64(M) @ _f64(B) + _f64(A)
+    np.testing.assert_allclose(_f64(op.from_internal(Ym)), want, rtol=1e-5,
+                               atol=1e-4)
+    np.testing.assert_allclose(_f64(G), want @ want.T, rtol=1e-4, atol=1e-2)
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_codec_mm2_and_px_update(k):
+    op = _codec_op()
+    (W, Z, P, X), (Wm, Zm, Pm, Xm) = _codec_fields(op, k, (60, 61, 62, 63))
+    M1, M2, rho, C = _kk(k, 64), _kk(k, 65), _kk(k, 66), _kk(k, 67)
+    Vm, G = f_mm2_update_gram(M1, Wm, M2, Zm, codec=op)
+    want_v = _f64(M1) @ _f64(W) + _f64(M2) @ _f64(Z)
+    np.testing.assert_allclose(_f64(op.from_internal(Vm)), want_v,
                                rtol=1e-5, atol=1e-4)
-    Xd, Rd, Sd = fused.xr_update_gram(A, P, X, Z, R, interpret=True,
-                                      donate=True)
-    np.testing.assert_array_equal(np.asarray(Xd), np.asarray(Xn))
-    np.testing.assert_array_equal(np.asarray(Rd), np.asarray(Rn))
+    np.testing.assert_allclose(_f64(G), want_v @ want_v.T, rtol=1e-4,
+                               atol=1e-2)
+    Pn, Xn = f_px_update(M1, Wm, rho, Pm, C, Xm, codec=op)
+    np.testing.assert_allclose(_f64(op.from_internal(Pn)),
+                               _f64(M1) @ _f64(W) + _f64(rho) @ _f64(P),
+                               rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(_f64(op.from_internal(Xn)),
+                               _f64(X) + _f64(C) @ _f64(P),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_codec_xr_and_qr_updates(k):
+    op = _codec_op()
+    (P, X, Z, R), (Pm, Xm, Zm, Rm) = _codec_fields(op, k, (70, 71, 72, 73))
+    A, rho = _kk(k, 74), _kk(k, 75)
+    Xn, Rn, S = f_xr_update_gram(A, Pm, Xm, Zm, Rm, codec=op)
+    want_r = _f64(R) - _f64(A) @ _f64(Z)
+    np.testing.assert_allclose(_f64(op.from_internal(Xn)),
+                               _f64(X) + _f64(A) @ _f64(P),
+                               rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(_f64(op.from_internal(Rn)), want_r,
+                               rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(_f64(S), want_r @ want_r.T, rtol=1e-4,
+                               atol=1e-2)
+    Q, Pn = f_qr_p_update(A, Rm, rho, Pm, codec=op)
+    np.testing.assert_allclose(_f64(op.from_internal(Q)), _f64(A) @ _f64(R),
+                               rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(
+        _f64(op.from_internal(Pn)),
+        _f64(A) @ _f64(R) + _f64(rho) @ _f64(P), rtol=1e-5, atol=1e-4)

@@ -1,18 +1,15 @@
-"""Property/fuzz tests: random structures through the Pallas kernels
-(interpret mode) vs dense oracles — exercises planner edge cases
-(near/far splits, toroidal wraps, mask patterns) beyond the hand-built
-problem generators."""
+"""Property/fuzz tests: random structures through the operators' public
+applies vs float64 dense oracles — exercises near/far offsets, toroidal
+wraps, duplicate offsets and mask patterns beyond the hand-built problem
+generators."""
 
 import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from blockcg_tpu.ops.stencil import stencil_spmm_t, plan as splan
-from blockcg_tpu.ops.const_block_stencil import (
-    const_block_stencil_spmm_t,
-    plan as cplan,
-    n_groups,
-)
+from blockcg.operators import DIAOperator
+from blockcg.operators.bdia import BlockDIAOperator
+from blockcg.operators.cbdia import ConstBlockDIAOperator
 
 
 def _dense_from_diags(n, offsets, diags):
@@ -34,13 +31,11 @@ def test_fuzz_scalar_stencil(seed):
         mag = int(rng.choice([1, 2, 3, 7, 16, 64, n // 4, n // 2]))
         offsets.add(int(rng.choice([-1, 1])) * mag)
     offsets = tuple(sorted(offsets))
-    if splan(n, k, offsets) is None:
-        pytest.skip(f"no plan for n={n}, offsets={offsets}")
     diags = rng.standard_normal((noff, n)).astype(np.float32)
     a = _dense_from_diags(n, offsets, diags.astype(np.float64))
     X = rng.standard_normal((n, k)).astype(np.float32)
-    Yt = stencil_spmm_t(jnp.asarray(diags), offsets, jnp.asarray(X.T),
-                        interpret=True)
+    op = DIAOperator(diags=jnp.asarray(diags), offsets=offsets)
+    Yt = op.matmat_t(jnp.asarray(X.T))
     want = a @ X
     denom = max(np.abs(want).max(), 1e-30)
     assert np.abs(np.asarray(Yt).T - want).max() / denom < 1e-5
@@ -84,14 +79,12 @@ def test_fuzz_const_block_stencil(seed):
             mask_slot.append(-1)
     hops = tuple(hops)
     mask_slot = tuple(mask_slot)
-    nmask = len(masks)
-    if cplan(ns, k, bs, offsets, nmask, groups=n_groups(hops)) is None:
-        pytest.skip(f"no plan for ns={ns}, bs={bs}, offsets={offsets}")
     masks_j = jnp.asarray(np.stack(masks)) if masks else None
+    op = ConstBlockDIAOperator(masks=masks_j, hops=hops, offsets=offsets,
+                               mask_slot=mask_slot, num_sites=ns)
     X = rng.standard_normal((bs * ns, k)).astype(np.float32)
     Xv = jnp.asarray(X.T).reshape(k, bs, ns)
-    Yv = const_block_stencil_spmm_t(hops, offsets, mask_slot, masks_j, Xv,
-                                    interpret=True)
+    Yv = op.matmat_t(Xv)  # the 3D (k, bs, ns) view
     a = _dense_from_const_blocks(ns, bs, offsets, hops, mask_slot, masks)
     want = a @ X
     got = np.asarray(Yv).reshape(k, bs * ns).T
@@ -101,13 +94,8 @@ def test_fuzz_const_block_stencil(seed):
 
 @pytest.mark.parametrize("seed", range(6))
 def test_fuzz_merged_const_block_stencil(seed):
-    """Merged spin-major kernel (+fused gram) with random VALUE masks and
+    """Merged spin-major apply (+ gram) with random VALUE masks and
     duplicate offsets vs the dense oracle."""
-    from blockcg_tpu.ops.const_block_stencil import (
-        available_m, const_block_stencil_spmm_m_gram_t,
-        const_block_stencil_spmm_m_t,
-    )
-
     rng = np.random.default_rng(300 + seed)
     ns = int(rng.choice([256, 512, 1024]))
     bs = int(rng.choice([2, 4]))
@@ -136,18 +124,15 @@ def test_fuzz_merged_const_block_stencil(seed):
     offsets = tuple(offsets)
     hops = tuple(hops)
     mask_slot = tuple(mask_slot)
-    nmask = len(masks)
     m = bs * k
-    if not available_m(ns, m, offsets, nmask, groups=n_groups(hops)):
-        pytest.skip(f"no merged plan for ns={ns}, m={m}, offsets={offsets}")
     masks_j = jnp.asarray(np.stack(masks)) if masks else None
+    op = ConstBlockDIAOperator(masks=masks_j, hops=hops, offsets=offsets,
+                               mask_slot=mask_slot, num_sites=ns)
     X = rng.standard_normal((bs * ns, k)).astype(np.float32)
     # merged spin-major rows: row = a*k + i from flat spin-major a*ns + s
     Xm = jnp.asarray(X.T).reshape(k, bs, ns).swapaxes(0, 1).reshape(m, ns)
-    Ym = const_block_stencil_spmm_m_t(hops, offsets, mask_slot, masks_j,
-                                      Xm, interpret=True)
-    Y2, G = const_block_stencil_spmm_m_gram_t(hops, offsets, mask_slot,
-                                              masks_j, Xm, interpret=True)
+    Ym = op.matmat_t(Xm)
+    Y2, G = op.matmat_gram_t(Xm)
     a = _dense_from_const_blocks(ns, bs, offsets, hops, mask_slot, masks)
     want = a @ X
     got = np.asarray(Ym).reshape(bs, k, ns).swapaxes(0, 1).reshape(
@@ -156,20 +141,17 @@ def test_fuzz_merged_const_block_stencil(seed):
     assert np.abs(got - want).max() / denom < 1e-5
     np.testing.assert_allclose(np.asarray(Y2), np.asarray(Ym),
                                rtol=1e-6, atol=1e-6)
+    # the operator contracts the (m, m) Gram of the merged field to k x k
     want_g = (np.asarray(Xm, np.float64)
               @ np.asarray(Ym, np.float64).T)
+    want_g = np.einsum("aiaj->ij", want_g.reshape(bs, k, bs, k))
     np.testing.assert_allclose(np.asarray(G), want_g, rtol=1e-4,
                                atol=1e-3)
 
 
 @pytest.mark.parametrize("seed", range(4))
 def test_fuzz_merged_general_block_stencil(seed):
-    """Merged general (per-site blocks) kernel vs the dense oracle."""
-    from blockcg_tpu.ops.block_stencil import (
-        available_m, block_stencil_spmm_m_t,
-    )
-    from blockcg_tpu.operators.bdia import BlockDIAOperator
-
+    """Merged general (per-site blocks) apply vs the dense oracle."""
     rng = np.random.default_rng(400 + seed)
     ns = int(rng.choice([256, 512]))
     bs = int(rng.choice([2, 4]))
@@ -181,15 +163,12 @@ def test_fuzz_merged_general_block_stencil(seed):
         mag = int(rng.choice([1, 5, 32, ns // 4]))
         offsets.add(int(rng.choice([-1, 1])) * mag)
     offsets = tuple(sorted(offsets))
-    m = bs * k
-    if not available_m(ns, m, bs, offsets):
-        pytest.skip(f"no merged plan for ns={ns}, m={m}, offsets={offsets}")
     blocks = rng.standard_normal((len(offsets), bs, bs, ns)).astype(np.float32)
     blocks[rng.random(blocks.shape) < 0.2] = 0.0
     op = BlockDIAOperator(blocks=jnp.asarray(blocks), offsets=offsets)
     X = rng.standard_normal((bs * ns, k)).astype(np.float32)
     Xm = op.to_internal(jnp.asarray(X.T))
-    Ym = block_stencil_spmm_m_t(op.blocks, offsets, Xm, interpret=True)
+    Ym = op.matmat_t(Xm)
     got = np.asarray(op.from_internal(Ym)).T
     # dense oracle
     n = bs * ns
@@ -210,12 +189,11 @@ def test_fuzz_merged_general_block_stencil(seed):
 def test_fuzz_rcm_tiled_roundtrip(seed):
     """Random geometric-graph Laplacians (+ random SPD diagonal noise)
     through the RCM-reordered tile path: order-conversion round-trip and
-    interpret-mode kernel agree with scipy; fill metadata is consistent."""
+    the lanes-major apply agree with scipy; fill metadata is consistent."""
     import scipy.sparse as sp
 
-    from blockcg_tpu.operators import TiledOperator
-    from blockcg_tpu.ops.spmm_tiled import tiled_spmm_t
-    from blockcg_tpu.problems import rgg_laplacian
+    from blockcg.operators import TiledOperator
+    from blockcg.problems import rgg_laplacian
 
     rng = np.random.default_rng(100 + seed)
     n = int(rng.choice([700, 1500, 2048]))
@@ -233,8 +211,7 @@ def test_fuzz_rcm_tiled_roundtrip(seed):
     want = a @ X.astype(np.float64)
     denom = max(np.abs(want).max(), 1e-30)
     assert np.abs(got - want).max() / denom < 1e-5
-    # interpret-mode kernel on the internal (permuted) field
-    Yt = tiled_spmm_t(op.tiles, op.rt, op.ct, op.first,
-                      jnp.asarray(Xi).T, interpret=True)
+    # lanes-major apply on the internal (permuted) field
+    Yt = op.matmat_t(jnp.asarray(Xi).T)
     got_k = np.asarray(op.from_solver_order(np.asarray(Yt).T), np.float64)
     assert np.abs(got_k - want).max() / denom < 1e-5

@@ -5,10 +5,10 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-import blockcg_tpu as bc
-from blockcg_tpu import solve_sbcgrq
-from blockcg_tpu.problems import dirac_gauged, random_block
-from blockcg_tpu.problems.dirac import bdia_scipy
+import blockcg as bc
+from blockcg import solve_sbcgrq
+from blockcg.problems import dirac_gauged, random_block
+from blockcg.problems.dirac import bdia_scipy
 
 
 @pytest.mark.parametrize("dtype,tol", [(jnp.float64, 1e-12),
@@ -20,7 +20,7 @@ def test_gauged_hermitian_pd(dtype, tol):
 
 
 def test_gauged_differs_from_constant():
-    from blockcg_tpu.problems import dirac_bdia
+    from blockcg.problems import dirac_bdia
 
     ag = bdia_scipy(dirac_gauged(3, m=0.5, dtype=jnp.float64))
     ac = bdia_scipy(dirac_bdia(3, m=0.5, dtype=jnp.float64))
@@ -51,7 +51,7 @@ def test_gauged_solve():
 
 def test_gauged_complex_realified_solve():
     """U(1)-gauged complex Hermitian through the realified real path."""
-    from blockcg_tpu.operators import realify
+    from blockcg.operators import realify
 
     op = dirac_gauged(3, m=0.5, dtype=jnp.complex64)
     rop = realify(op)
@@ -67,7 +67,7 @@ def test_gauged_complex_realified_solve():
 
 def test_gauged_bf16_blocks():
     """bf16-stored blocks (memory option): ~4e-4 operator rounding."""
-    from blockcg_tpu.operators.base import astype
+    from blockcg.operators.base import astype
 
     op = dirac_gauged(4, m=0.5, dtype=jnp.float32)
     op16 = astype(op, jnp.bfloat16)
@@ -83,7 +83,7 @@ def test_gauged_bf16_blocks():
 
 def test_gauged_cbdia_matches_gauged_real():
     """Z2 links as const-hop value masks: identical matrix to dirac_gauged."""
-    from blockcg_tpu.problems import dirac_gauged_cbdia
+    from blockcg.problems import dirac_gauged_cbdia
 
     for bc in ("periodic", "open"):
         a = bdia_scipy(dirac_gauged(3, m=0.5, bc=bc, dtype=jnp.float64))
@@ -96,7 +96,7 @@ def test_gauged_cbdia_matches_gauged_real():
 
 def test_gauged_cbdia_complex_apply_matches_oracle():
     """U(1) links via the realified K1/K2 const-hop pair."""
-    from blockcg_tpu.problems import dirac_gauged_cbdia
+    from blockcg.problems import dirac_gauged_cbdia
 
     op = dirac_gauged_cbdia(3, m=0.5, dtype=jnp.complex128)
     a = bdia_scipy(dirac_gauged(3, m=0.5, dtype=jnp.complex128))
@@ -109,8 +109,8 @@ def test_gauged_cbdia_complex_apply_matches_oracle():
 
 
 def test_gauged_cbdia_kernel_interpret():
-    """Duplicate-offset value-masked diagonals through the merged kernel."""
-    from blockcg_tpu.problems import dirac_gauged_cbdia
+    """Duplicate-offset value-masked diagonals through the merged apply."""
+    from blockcg.problems import dirac_gauged_cbdia
 
     op = dirac_gauged_cbdia(4, m=0.5, dtype=jnp.float32)
     a = bdia_scipy(dirac_gauged(4, m=0.5, dtype=jnp.float64))
@@ -118,7 +118,7 @@ def test_gauged_cbdia_kernel_interpret():
     k = 2  # m = 8
     X = rng.standard_normal((op.n, k)).astype(np.float32)
     Xm = op.to_internal(jnp.asarray(X.T))
-    Ym = op.matmat_t(Xm, interpret=True)
+    Ym = op.matmat_t(Xm)
     Yt = np.asarray(op.from_internal(Ym)).T
     want = a @ X
     assert np.abs(Yt - want).max() / np.abs(want).max() < 1e-5
@@ -126,8 +126,8 @@ def test_gauged_cbdia_kernel_interpret():
 
 def test_gauged_cbdia_solve_matches_general():
     """SBCGrQ through the const-hop gauged container == general container."""
-    import blockcg_tpu as bc
-    from blockcg_tpu.problems import dirac_gauged_cbdia
+    import blockcg as bc
+    from blockcg.problems import dirac_gauged_cbdia
 
     opc = dirac_gauged_cbdia(4, m=0.5, dtype=jnp.float32)
     opg = dirac_gauged(4, m=0.5, dtype=jnp.float32)
@@ -142,8 +142,8 @@ def test_gauged_cbdia_solve_matches_general():
 def test_gauged_cbdia_u1_core_kernel_interpret():
     """True duplicate-offset coverage: the complex64 U(1) operator's
     realified f32 core (K1/K2 value-masked pairs share offsets) through the
-    merged kernel in interpret mode vs its XLA oracle."""
-    from blockcg_tpu.problems import dirac_gauged_cbdia
+    merged apply vs the scipy oracle of its block form."""
+    from blockcg.problems import dirac_gauged_cbdia
 
     w = dirac_gauged_cbdia(4, m=0.5, dtype=jnp.complex64)
     core = w.real_op
@@ -153,12 +153,14 @@ def test_gauged_cbdia_u1_core_kernel_interpret():
     k = 2  # m = 2*bs_r... bs_r = 8 -> m = 16
     Xm = jnp.asarray(rng.standard_normal((core.bs * k, core.ns)),
                      dtype=jnp.float32)
-    got = core.matmat_t(Xm, interpret=True)
-    want = core._matmat_m_xla(Xm)
+    got = core.matmat_t(Xm)
+    a = bdia_scipy(core.to_block_dia())
+    want = core.to_internal(jnp.asarray(
+        (a @ np.asarray(core.from_internal(Xm), np.float64).T).T))
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=2e-5, atol=2e-5)
-    # and the fused gram path over the same duplicate-offset structure
-    Y, G = core.matmat_gram_t(Xm, interpret=True)
+    # and the gram path over the same duplicate-offset structure
+    Y, G = core.matmat_gram_t(Xm)
     np.testing.assert_allclose(np.asarray(Y), np.asarray(want),
                                rtol=2e-5, atol=2e-5)
     want_g = core.gram_contract(jnp.asarray(
@@ -171,7 +173,7 @@ def test_gauged_matrix_links_spd_and_solve():
     """Matrix-valued (SU(N)-style) links: the non-factorizable gauged case
     that requires the general per-site block kernel. SPD by the
     norm-preserving orthogonal links; solve matches the scipy oracle."""
-    from blockcg_tpu.problems import dirac_gauged_matrix
+    from blockcg.problems import dirac_gauged_matrix
 
     op = dirac_gauged_matrix(4, m=0.5, dtype=jnp.float64)
     a = bdia_scipy(op)
@@ -189,7 +191,7 @@ def test_gauged_matrix_links_spd_and_solve():
 def test_gauged_matrix_links_hermitian():
     """Complex Hermitian matrix links (unitary U): the full lattice-QCD-like
     flavor, solved through the conjugate-correct complex path."""
-    from blockcg_tpu.problems import dirac_gauged_matrix
+    from blockcg.problems import dirac_gauged_matrix
 
     op = dirac_gauged_matrix(3, m=0.5, dtype=jnp.complex128)
     a = bdia_scipy(op)

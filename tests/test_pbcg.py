@@ -4,9 +4,9 @@ import numpy as np
 import jax.numpy as jnp
 import scipy.sparse as sp
 
-import blockcg_tpu as bc
-from blockcg_tpu.operators import DenseOperator, DIAOperator
-from blockcg_tpu.solvers.pbcg import jacobi_preconditioner
+import blockcg as bc
+from blockcg.operators import DenseOperator, DIAOperator
+from blockcg.solvers.pbcg import jacobi_preconditioner
 
 
 def _scaled_spd_dia(n, seed=0, spread=4.0):
@@ -45,7 +45,7 @@ def test_pbcg_jacobi_matches_direct_and_cuts_iterations():
 
 def test_pbcg_identity_preconditioner_equals_bcg():
     """M = I reduces PBCG to plain BCG (same iterates, f64-exact-ish)."""
-    from blockcg_tpu.solvers.pbcg import JacobiPreconditioner
+    from blockcg.solvers.pbcg import JacobiPreconditioner
 
     n, k = 256, 3
     rng = np.random.default_rng(2)
@@ -63,8 +63,8 @@ def test_pbcg_identity_preconditioner_equals_bcg():
 def test_pbcg_on_merged_block_operator():
     """Jacobi on the const-hop (merged layout) Dirac operator: the
     per-spin inverse-diagonal repeats over the k rows."""
-    from blockcg_tpu.problems import dirac_cbdia
-    from blockcg_tpu.problems.dirac import bdia_scipy
+    from blockcg.problems import dirac_cbdia
+    from blockcg.problems.dirac import bdia_scipy
 
     op = dirac_cbdia(4, m=0.5, dtype=jnp.float32)
     M = jacobi_preconditioner(op)
@@ -79,7 +79,7 @@ def test_pbcg_on_merged_block_operator():
 
 
 def test_psbcgrq_identity_equals_sbcgrq():
-    from blockcg_tpu.solvers.pbcg import JacobiPreconditioner
+    from blockcg.solvers.pbcg import JacobiPreconditioner
 
     n, k = 256, 4
     rng = np.random.default_rng(10)

@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 
-from blockcg_tpu.operators import BSROperator, CSROperator, DIAOperator, ELLOperator
-from blockcg_tpu.problems import (
+from blockcg.operators import BSROperator, CSROperator, DIAOperator, ELLOperator
+from blockcg.problems import (
     dirac_bell,
     dirac_scipy,
     laplacian_dia,
@@ -105,7 +105,7 @@ def test_random_regular_spd():
     """Exact-regular expander generator: d off-diagonals per row (up to the
     rare self-loop/duplicate collision), SPD, symmetric."""
     import numpy as np
-    from blockcg_tpu.problems import random_regular_spd
+    from blockcg.problems import random_regular_spd
 
     a = random_regular_spd(512, degree=8, seed=3)
     assert (abs(a - a.T) > 0).nnz == 0

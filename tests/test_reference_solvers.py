@@ -7,8 +7,8 @@ solve; plus the SBCGrQ self-consistency invariant ``B - A X = Q S``.
 
 import numpy as np
 
-from blockcg_tpu.problems import random_spd, random_block, laplacian_scipy
-from blockcg_tpu.solvers.reference import ref_cg, ref_bcg, ref_sbcgrq
+from blockcg.problems import random_spd, random_block, laplacian_scipy
+from blockcg.solvers.reference import ref_cg, ref_bcg, ref_sbcgrq
 
 
 def test_ref_cg_matches_direct():

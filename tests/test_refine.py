@@ -4,10 +4,10 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from blockcg_tpu import solve_refined
-from blockcg_tpu.operators import DenseOperator
-from blockcg_tpu.operators.base import astype as op_astype
-from blockcg_tpu.problems import (
+from blockcg import solve_refined
+from blockcg.operators import DenseOperator
+from blockcg.operators.base import astype as op_astype
+from blockcg.problems import (
     dirac_bdia,
     bdia_scipy,
     laplacian_dia,

@@ -4,9 +4,9 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from blockcg_tpu.operators import DenseOperator
-from blockcg_tpu.solvers.shifted import solve_shifted_cg
-from blockcg_tpu.problems import laplacian_dia, laplacian_scipy, random_block, random_spd
+from blockcg.operators import DenseOperator
+from blockcg.solvers.shifted import solve_shifted_cg
+from blockcg.problems import laplacian_dia, laplacian_scipy, random_block, random_spd
 
 
 def test_shifted_cg_dense_matches_direct():
@@ -57,8 +57,8 @@ def test_shifted_cg_rejects_block():
 def test_shifted_cg_complex_hermitian():
     """Regression: complex HPD systems once failed at trace time (complex
     rho in a real while_loop carry)."""
-    from blockcg_tpu.operators import DenseOperator
-    from blockcg_tpu.solvers.shifted import solve_shifted_cg
+    from blockcg.operators import DenseOperator
+    from blockcg.solvers.shifted import solve_shifted_cg
 
     rng = np.random.default_rng(51)
     V = rng.standard_normal((64, 96)) + 1j * rng.standard_normal((64, 96))

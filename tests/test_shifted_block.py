@@ -4,11 +4,11 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-import blockcg_tpu as bc
-from blockcg_tpu.operators import DenseOperator
-from blockcg_tpu.problems import laplacian_dia, laplacian_scipy, random_spd
-from blockcg_tpu.problems.random_spd import random_hpd, random_block, random_block_c
-from blockcg_tpu.solvers.shifted_block import solve_shifted_sbcgrq
+import blockcg as bc
+from blockcg.operators import DenseOperator
+from blockcg.problems import laplacian_dia, laplacian_scipy, random_spd
+from blockcg.problems.random_spd import random_hpd, random_block, random_block_c
+from blockcg.solvers.shifted_block import solve_shifted_sbcgrq
 
 
 def _check_all_shifts(A, B, Xs, sigmas, tol):
@@ -57,7 +57,6 @@ def test_shifted_sbcgrq_laplacian_f32():
                       sigmas, 1e-4)
 
 
-@pytest.mark.needs_complex
 def test_shifted_sbcgrq_complex():
     n, k = 128, 4
     A = random_hpd(n, delta=0.5, seed=4)
@@ -101,9 +100,9 @@ def test_shifted_block_k1_matches_scalar_shifted_cg():
 
 def test_shifted_sbcgrq_merged_block_op():
     """Multi-shift block solve through a merged-layout const-hop operator."""
-    from blockcg_tpu.problems import dirac_cbdia
-    from blockcg_tpu.problems.dirac import bdia_scipy
-    from blockcg_tpu.solvers.shifted_block import solve_shifted_sbcgrq
+    from blockcg.problems import dirac_cbdia
+    from blockcg.problems.dirac import bdia_scipy
+    from blockcg.solvers.shifted_block import solve_shifted_sbcgrq
 
     op = dirac_cbdia(4, m=0.5, dtype=jnp.float64)
     rng = np.random.default_rng(21)

@@ -1,57 +1,29 @@
-"""Slab-routed wrap diagonals (ConstBlockDIA detect_slabs + slab kernel)."""
+"""Periodic wrap diagonals of the const-hop operator: at L = 16 the z- and
+y-wraps couple only boundary slabs of sites, far across the site axis."""
 
 import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from blockcg_tpu.ops.const_block_stencil import plan
-from blockcg_tpu.operators.cbdia import detect_slabs
-from blockcg_tpu.problems import bdia_scipy, dirac_cbdia
-
-
-def test_dirac_periodic_detects_z_wraps():
-    # Slab routing needs g | offset with g >= 256: the z-wrap offset is
-    # (L-1)*L^2, so L = 16 gives 3840 = 15*256 (L=8's 448 has no such g).
-    op = dirac_cbdia(16, m=0.5, bc="periodic", dtype=jnp.float32)
-    assert len(op.slabs) == 2
-    offs = sorted(op.offsets[e[0]] for e in op.slabs)
-    assert offs == [-3840, 3840]  # +-(L-1)*L^2
-    for d, g, nblocks, mul, base, shift in op.slabs:
-        assert op.num_sites % g == 0 and g >= 256
-        assert nblocks * g * 16 == op.num_sites  # 1/L of sites each
-
-
-def test_dirac_open_has_no_slabs():
-    op = dirac_cbdia(8, m=0.5, bc="open", dtype=jnp.float32)
-    assert op.slabs == ()
+from blockcg.problems import bdia_scipy, dirac_cbdia
 
 
 @pytest.mark.parametrize("L,k", [(16, 3)])
 def test_slab_kernel_matches_oracle(L, k):
-    """Full Pallas path (main kernel + slab accumulate) vs scipy, interpret."""
+    """Periodic L=16 apply (wrap diagonals included) vs scipy."""
     op = dirac_cbdia(L, m=0.5, bc="periodic", dtype=jnp.float32)
-    assert op.slabs, "periodic Dirac (L=16) must have slab diagonals"
+    assert (L - 1) * L * L in op.offsets  # the z-wrap diagonal is present
     a = bdia_scipy(op.to_block_dia())
     rng = np.random.default_rng(0)
     X = rng.standard_normal((op.n, k)).astype(np.float32)
-    Yt = op.matmat_t(jnp.asarray(X.T), interpret=True)
+    Yt = op.matmat_t(jnp.asarray(X.T))
     want = a @ X
     err = np.abs(np.asarray(Yt).T - want).max() / np.abs(want).max()
     assert err < 1e-5
 
 
-def test_slab_split_improves_main_plan_32():
-    """With the z-wraps slab-routed, the 32^4 main plan drops 2 far windows."""
-    op = dirac_cbdia(32, m=0.5, bc="periodic", dtype=jnp.float32)
-    hops_m, offs_m, _, _used = op._main_statics()
-    p_main = plan(op.num_sites, 12, 4, offs_m, nmask=12, groups=5)
-    p_full = plan(op.num_sites, 12, 4, op.offsets, nmask=12, groups=5)
-    assert p_main is not None and p_full is not None
-    assert p_main.x_reads < p_full.x_reads
-
-
 def test_slab_solve_end_to_end():
-    import blockcg_tpu as bc
+    import blockcg as bc
 
     op = dirac_cbdia(16, m=0.5, bc="periodic", dtype=jnp.float32)
     rng = np.random.default_rng(1)

@@ -10,16 +10,16 @@ import pytest
 import jax.numpy as jnp
 import scipy.sparse.linalg as spla
 
-from blockcg_tpu import solve_cg, solve_bcg, solve_sbcgrq
-from blockcg_tpu.operators import DenseOperator
-from blockcg_tpu.problems import (
+from blockcg import solve_cg, solve_bcg, solve_sbcgrq
+from blockcg.operators import DenseOperator
+from blockcg.problems import (
     laplacian_dia,
     laplacian_scipy,
     random_block,
     random_spd,
     dirac_bell,
 )
-from blockcg_tpu.solvers.reference import ref_cg, ref_sbcgrq
+from blockcg.solvers.reference import ref_cg, ref_sbcgrq
 
 
 def _relres(a_scipy, X, B):
@@ -150,7 +150,7 @@ def test_sbcgrq_f32_dirac():
     """North-star config 4 shrunk: BSR 4x4 Dirac-like operator, SBCGrQ."""
     L = 4
     op = dirac_bell(L, m=0.5, dtype=jnp.float32)
-    from blockcg_tpu.problems import dirac_scipy
+    from blockcg.problems import dirac_scipy
 
     a = dirac_scipy(L, m=0.5)
     B = random_block(op.n, 4, seed=15)
@@ -195,7 +195,7 @@ def test_sbcgrq_restart_replacement_f32_frequent():
     replacement and near-converged columns (the regime where keep-P rebasing
     measurably diverges — see sbcgrq.py module docstring)."""
     shape = (12, 12)
-    from blockcg_tpu.problems import laplacian_dia, laplacian_scipy
+    from blockcg.problems import laplacian_dia, laplacian_scipy
 
     a = laplacian_scipy(shape)
     op = laplacian_dia(shape, dtype=jnp.float32)
@@ -228,9 +228,9 @@ def test_sbcgrq_invariant_on_device():
 def test_bcg_and_bcgdq_on_merged_block_operator():
     """Regression: solvers' per-RHS norms/Grams must contract the merged
     (m = bs*k, ns) internal rows (codec) — solve_bcg once crashed here."""
-    import blockcg_tpu as bc
-    from blockcg_tpu.problems import dirac_cbdia
-    from blockcg_tpu.problems.dirac import bdia_scipy
+    import blockcg as bc
+    from blockcg.problems import dirac_cbdia
+    from blockcg.problems.dirac import bdia_scipy
 
     op = dirac_cbdia(4, m=0.5, dtype=jnp.float32)
     rng = np.random.default_rng(23)
@@ -313,7 +313,7 @@ def test_sbcgrq_breakdown_flag():
     Healthy blocks report breakdown False."""
     import numpy as np
 
-    from blockcg_tpu.problems import laplacian_dia
+    from blockcg.problems import laplacian_dia
 
     op = laplacian_dia((16, 16), dtype=jnp.float32)
     rng = np.random.default_rng(5)

@@ -1,8 +1,6 @@
-"""Pallas stencil SpMM kernel tests (T-K1), interpret mode on CPU.
-
-SURVEY.md §5.2 item 1: interpret=True runs the kernel with exact semantics on
-CPU; compare against scipy. The compiled TPU path is exercised by the bench
-CLI and was validated on hardware (rel err ~1e-7 vs scipy).
+"""DIA stencil apply tests (T-K1): the operator's public ``matmat_t`` /
+``matmat_gram_t`` against scipy and dense float64 oracles. chip_smoke.py
+runs the same apply on the GPU at full width.
 """
 
 import numpy as np
@@ -10,9 +8,19 @@ import pytest
 import jax.numpy as jnp
 import scipy.sparse as sp
 
-from blockcg_tpu.operators import DIAOperator
-from blockcg_tpu.ops.stencil import plan, stencil_spmm_t
-from blockcg_tpu.problems import laplacian_dia, laplacian_scipy
+from blockcg.operators import DIAOperator
+from blockcg.problems import laplacian_dia, laplacian_scipy
+
+
+def _dense_oracle(diags, offsets, Xt):
+    """Toroidal DIA apply in float64: Y[:, i] = sum_d c_d[i] X[:, i+o_d]."""
+    D = np.asarray(diags, np.float64)
+    X = np.asarray(Xt, np.float64)
+    n = D.shape[1]
+    Y = np.zeros_like(X)
+    for d, o in enumerate(offsets):
+        Y += D[d][None, :] * X[:, (np.arange(n) + o) % n]
+    return Y
 
 
 @pytest.mark.parametrize("shape,k", [((16, 16, 16), 8), ((64, 64), 4), ((32, 32), 1)])
@@ -20,7 +28,7 @@ def test_stencil_matches_scipy_laplacian(shape, k):
     op = laplacian_dia(shape, dtype=jnp.float32)
     rng = np.random.default_rng(0)
     X = rng.standard_normal((op.n, k)).astype(np.float32)
-    Yt = stencil_spmm_t(op.diags, op.offsets, jnp.asarray(X.T), interpret=True)
+    Yt = op.matmat_t(jnp.asarray(X.T))
     want = laplacian_scipy(shape) @ X
     err = np.abs(np.asarray(Yt).T - want).max() / np.abs(want).max()
     assert err < 1e-5
@@ -42,47 +50,25 @@ def test_stencil_random_banded():
     ).tocsr()
     op = DIAOperator.from_scipy(a, dtype=jnp.float32)
     X = rng.standard_normal((n, 5)).astype(np.float32)
-    Yt = stencil_spmm_t(op.diags, op.offsets, jnp.asarray(X.T), interpret=True)
+    Yt = op.matmat_t(jnp.asarray(X.T))
     want = a @ X
     assert np.abs(np.asarray(Yt).T - want).max() / np.abs(want).max() < 1e-5
 
 
 def test_stencil_agrees_with_xla_path():
+    """Lanes-major apply == the public (n, k) matmat and the dense oracle."""
     op = laplacian_dia((8, 8, 8), dtype=jnp.float32)
     rng = np.random.default_rng(2)
     Xt = jnp.asarray(rng.standard_normal((6, op.n)), dtype=jnp.float32)
-    got = stencil_spmm_t(op.diags, op.offsets, Xt, interpret=True)
-    want = op._matmat_t_xla(Xt)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-5, atol=1e-5)
-
-
-def test_plan_constraints():
-    offs = (-4096, -64, -1, 0, 1, 64, 4096)
-    p = plan(262144, 32, offs)
-    assert p is not None
-    assert 262144 % p.R == 0 and (p.H == 0 or p.R % p.H == 0)
-    assert set(p.near) | set(p.far) == set(offs)
-    for o in p.near:
-        assert abs(o) <= p.H
-    for o in p.far:
-        assert o % p.R == 0
-    # unplannable: n not a multiple of 128
-    assert plan(1000, 4, (-1, 0, 1)) is None
-
-
-def test_plan_huge_stride_uses_far_windows():
-    """Config-5 shape: 256^3 Laplacian, k=64 — the z-stride (65536) cannot fit
-    a near halo in VMEM; the planner must serve it with far windows."""
-    offs = (-65536, -256, -1, 0, 1, 256, 65536)
-    p = plan(256**3, 64, offs)
-    assert p is not None
-    assert -65536 in p.far and 65536 in p.far
-    assert p.x_reads < 3.5
+    got = op.matmat_t(Xt)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(op.matmat(Xt.T)).T,
+                               rtol=1e-6, atol=1e-6)
+    want = _dense_oracle(op.diags, op.offsets, Xt)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=1e-5, atol=1e-5)
 
 
 def test_stencil_far_window_correctness():
-    """Force a plan where the big offsets go through far windows (small n,
-    large stride) and check against scipy."""
+    """Large strides relative to n (n/4 offsets) against scipy."""
     import scipy.sparse as sp
 
     n = 4096
@@ -98,20 +84,18 @@ def test_stencil_far_window_correctness():
     ).tocsr()
     op = DIAOperator.from_scipy(a, dtype=jnp.float32)
     X = rng.standard_normal((n, 4)).astype(np.float32)
-    Yt = stencil_spmm_t(op.diags, op.offsets, jnp.asarray(X.T), interpret=True)
+    Yt = op.matmat_t(jnp.asarray(X.T))
     want = a @ X
     assert np.abs(np.asarray(Yt).T - want).max() / np.abs(want).max() < 1e-5
 
 
 def test_stencil_gram_fused():
-    """stencil_spmm_gram_t: Y matches the plain kernel, G == X Y^T."""
-    from blockcg_tpu.ops.stencil import stencil_spmm_gram_t
-
+    """matmat_gram_t: Y matches the plain apply, G == X Y^T."""
     op = laplacian_dia((16, 16, 16), dtype=jnp.float32)
     rng = np.random.default_rng(7)
     Xt = jnp.asarray(rng.standard_normal((8, op.n)), dtype=jnp.float32)
-    Yt, G = stencil_spmm_gram_t(op.diags, op.offsets, Xt, interpret=True)
-    want_y = stencil_spmm_t(op.diags, op.offsets, Xt, interpret=True)
+    Yt, G = op.matmat_gram_t(Xt)
+    want_y = op.matmat_t(Xt)
     np.testing.assert_allclose(np.asarray(Yt), np.asarray(want_y),
                                rtol=1e-6, atol=1e-6)
     want_g = np.asarray(Xt, np.float64) @ np.asarray(want_y, np.float64).T
@@ -119,26 +103,27 @@ def test_stencil_gram_fused():
 
 
 def test_dia_matmat_gram_fallback_none():
-    """On CPU (no TPU backend) matmat_gram_t returns (Y, None)."""
+    """matmat_gram_t always returns the k x k Gram (never None): solvers
+    psum it as it comes (solvers/common.f_matmat_gram)."""
     op = laplacian_dia((32, 32), dtype=jnp.float32)
     rng = np.random.default_rng(8)
     Xt = jnp.asarray(rng.standard_normal((4, op.n)), dtype=jnp.float32)
     Y, G = op.matmat_gram_t(Xt)
-    assert G is None
+    assert G is not None and G.shape == (4, 4)
     np.testing.assert_allclose(np.asarray(Y), np.asarray(op.matmat_t(Xt)),
                                rtol=1e-6, atol=1e-6)
+    want_g = np.asarray(Xt, np.float64) @ np.asarray(Y, np.float64).T
+    np.testing.assert_allclose(np.asarray(G), want_g, rtol=1e-5, atol=1e-3)
 
 
 def test_stencil_duplicate_offsets():
-    """Regression: duplicate offsets once mapped to the same diagonal in
-    the kernel reorder (one applied twice, one dropped)."""
+    """Duplicate offsets are summed, each diagonal applied once."""
     rng = np.random.default_rng(52)
     n, k = 256, 8
     diags = rng.standard_normal((3, n)).astype(np.float32)
     offsets = (0, 1, 1)
     op = DIAOperator(diags=jnp.asarray(diags), offsets=offsets)
     Xt = jnp.asarray(rng.standard_normal((k, n)), jnp.float32)
-    got = stencil_spmm_t(op.diags, offsets, Xt, interpret=True)
-    want = op._matmat_t_xla(Xt)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               rtol=1e-5, atol=1e-5)
+    got = op.matmat_t(Xt)
+    want = _dense_oracle(diags, offsets, Xt)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=1e-5, atol=1e-5)

@@ -1,19 +1,14 @@
-"""Rolling-ring stencil SpMM kernel tests (T-K1 large-n path),
-interpret mode on CPU.
-
-ops/stencil_ring.py streams X through a manually-DMA'd VMEM ring so every
-X block crosses HBM once (x_reads = 1.0) — the fix for the measured 6.2
-Gnnz/s / x_reads≈3 windowed-kernel rate at >=1M rows (BASELINE.md round-3).
-Interpret mode emulates the async copies and semaphores exactly; oracles
-are dense toroidal applies in f64.
+"""DIA apply at large offsets and toroidal wraps (T-K1): the operator's
+public ``matmat_t`` / ``matmat_gram_t`` against dense float64 toroidal
+oracles, including far offsets with nonzero residues and bf16 storage.
 """
 
 import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from blockcg_tpu.ops import stencil_ring
-from blockcg_tpu.problems import laplacian_dia, laplacian_scipy
+from blockcg.operators import DIAOperator
+from blockcg.problems import laplacian_dia, laplacian_scipy
 
 
 def _oracle(diags, offsets, Xt):
@@ -37,8 +32,7 @@ def test_ring_matches_oracle(n, k, offsets):
     rng = np.random.default_rng(0)
     diags = jnp.asarray(rng.standard_normal((len(offsets), n)), jnp.float32)
     Xt = jnp.asarray(rng.standard_normal((k, n)), jnp.float32)
-    assert stencil_ring.available(n, k, offsets)
-    Y = stencil_ring.ring_spmm_t(diags, offsets, Xt, interpret=True)
+    Y = DIAOperator(diags=diags, offsets=offsets).matmat_t(Xt)
     ref = _oracle(diags, offsets, Xt)
     assert np.abs(np.asarray(Y, np.float64) - ref).max() / (
         np.abs(ref).max() + 1e-30) < 1e-5
@@ -50,7 +44,7 @@ def test_ring_gram_fused():
     rng = np.random.default_rng(1)
     diags = jnp.asarray(rng.standard_normal((len(offsets), n)), jnp.float32)
     Xt = jnp.asarray(rng.standard_normal((k, n)), jnp.float32)
-    Y, G = stencil_ring.ring_spmm_gram_t(diags, offsets, Xt, interpret=True)
+    Y, G = DIAOperator(diags=diags, offsets=offsets).matmat_gram_t(Xt)
     ref = _oracle(diags, offsets, Xt)
     refG = np.asarray(Xt, np.float64) @ ref.T
     assert np.abs(np.asarray(Y, np.float64) - ref).max() / np.abs(
@@ -61,13 +55,12 @@ def test_ring_gram_fused():
 
 def test_ring_matches_laplacian_scipy():
     """Dirichlet Laplacian: wrap coefficients are zero by construction, so
-    the kernel's toroidal semantics equal the truncated scipy apply."""
+    the toroidal semantics equal the truncated scipy apply."""
     shape = (16, 16, 16)
     op = laplacian_dia(shape, dtype=jnp.float32)
     rng = np.random.default_rng(2)
     X = rng.standard_normal((op.n, 8)).astype(np.float32)
-    Yt = stencil_ring.ring_spmm_t(op.diags, op.offsets, jnp.asarray(X.T),
-                                  interpret=True)
+    Yt = op.matmat_t(jnp.asarray(X.T))
     want = laplacian_scipy(shape) @ X
     assert np.abs(np.asarray(Yt).T - want).max() / np.abs(want).max() < 1e-5
 
@@ -78,72 +71,10 @@ def test_ring_bf16_accumulates_f32():
     rng = np.random.default_rng(3)
     diags = jnp.asarray(rng.standard_normal((len(offsets), n)), jnp.bfloat16)
     Xt = jnp.asarray(rng.standard_normal((k, n)), jnp.bfloat16)
-    Y = stencil_ring.ring_spmm_t(diags, offsets, Xt, interpret=True)
+    Y = DIAOperator(diags=diags, offsets=offsets).matmat_t(Xt)
     assert Y.dtype == jnp.bfloat16
     ref = _oracle(diags, offsets, Xt)  # oracle of the ROUNDED inputs
     # bf16 stores: ~8e-3 relative; accumulation is f32 so error does not
     # scale with ndiag
     assert np.abs(np.asarray(Y, np.float64) - ref).max() / np.abs(
         ref).max() < 3e-2
-
-
-def test_ring_plan_rejects_tiny():
-    # below the n floor, and n not a multiple of 128
-    assert stencil_ring.plan(256, 8, (0, 1, -1)) is None
-    assert not stencil_ring.available(4096 + 64, 8, (0, 1, -1))
-
-
-def test_ring_donate_matches_fresh():
-    """Donated (Y aliased onto X) vs fresh apply, Dirichlet operator.
-
-    Interpret mode exercises the aliasing plumbing but materializes the
-    output separately, so it CANNOT reproduce the wrap-read hazard the
-    wrap_zero gate exists for — test_ring_onchip_smoke covers that on
-    hardware (the donated result there reads real overwritten slots)."""
-    shape = (16, 16, 8)
-    op = laplacian_dia(shape, dtype=jnp.float32)
-    assert op.wrap_zero
-    rng = np.random.default_rng(4)
-    Xt = jnp.asarray(rng.standard_normal((8, op.n)), jnp.float32)
-    fresh = stencil_ring.ring_spmm_t(op.diags, op.offsets, Xt,
-                                     interpret=True)
-    donated = stencil_ring.ring_spmm_t(op.diags, op.offsets, Xt,
-                                       interpret=True, donate=True)
-    np.testing.assert_array_equal(np.asarray(fresh), np.asarray(donated))
-    # gram variant
-    yf, gf = stencil_ring.ring_spmm_gram_t(op.diags, op.offsets, Xt,
-                                           interpret=True)
-    yd, gd = stencil_ring.ring_spmm_gram_t(op.diags, op.offsets, Xt,
-                                           interpret=True, donate=True)
-    np.testing.assert_array_equal(np.asarray(yf), np.asarray(yd))
-    np.testing.assert_array_equal(np.asarray(gf), np.asarray(gd))
-
-
-def test_ring_onchip_smoke():
-    """Ring kernel vs oracle, fresh AND donated — the on-chip regression
-    entry for the kernel family with a documented hardware-only failure
-    class (unawaited in-flight DMAs abort; wrap reads of donated buffers).
-    On CPU this runs interpret mode (same assertions); in the
-    BLOCKCG_TEST_TPU=1 smoke run it executes the real Mosaic kernel."""
-    import jax
-
-    interp = jax.default_backend() != "tpu"
-    shape = (32, 16, 8)  # n = 4096: several ring wraps, tiny on chip
-    op = laplacian_dia(shape, dtype=jnp.float32)
-    rng = np.random.default_rng(5)
-    X = rng.standard_normal((op.n, 8)).astype(np.float32)
-    Xt = jnp.asarray(X.T)
-    want = laplacian_scipy(shape) @ X
-    for donate in (False, True):
-        Yt = stencil_ring.ring_spmm_t(op.diags, op.offsets, Xt,
-                                      interpret=interp, donate=donate)
-        got = np.asarray(Yt).T
-        assert np.abs(got - want).max() / np.abs(want).max() < 1e-5, (
-            f"donate={donate}")
-    # fused-gram variant incl. donation
-    Yt, G = stencil_ring.ring_spmm_gram_t(op.diags, op.offsets, Xt,
-                                          interpret=interp, donate=True)
-    assert np.abs(np.asarray(Yt).T - want).max() / np.abs(want).max() < 1e-5
-    wantG = X.T.astype(np.float64) @ want.astype(np.float64)
-    assert np.abs(np.asarray(G, np.float64) - wantG).max() / np.abs(
-        wantG).max() < 1e-5

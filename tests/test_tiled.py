@@ -1,14 +1,13 @@
-"""Sparse-tile operator + kernel + native tilizer tests (general CSR path)."""
+"""Sparse-tile operator + native tilizer tests (general CSR path)."""
 
 import numpy as np
 import pytest
 import jax.numpy as jnp
 import scipy.sparse as sp
 
-from blockcg_tpu.native import have_native, tilize_csr
-from blockcg_tpu.operators import TiledOperator
-from blockcg_tpu.ops.spmm_tiled import tiled_spmm_t
-from blockcg_tpu.problems import laplacian_scipy, random_block
+from blockcg.native import have_native, tilize_csr
+from blockcg.operators import TiledOperator
+from blockcg.problems import laplacian_scipy, random_block
 
 
 def _random_sparse_spd(n, density, seed):
@@ -51,12 +50,11 @@ def test_tiled_operator_xla_matches_scipy(n, density, k):
 
 
 def test_tiled_kernel_interpret_matches_scipy():
+    """f32 lanes-major apply (tile gather + batched dot + segment sum)."""
     a = _random_sparse_spd(512, 0.02, 4)
     op = TiledOperator.from_scipy(a, dtype=jnp.float32)
     X = random_block(512, 4, seed=5).astype(np.float32)
-    Yt = tiled_spmm_t(
-        op.tiles, op.rt, op.ct, op.first, jnp.asarray(X.T), interpret=True
-    )
+    Yt = op.matmat_t(jnp.asarray(X.T))
     want = a @ X
     err = np.abs(np.asarray(Yt).T - want).max() / np.abs(want).max()
     assert err < 1e-5
@@ -74,7 +72,7 @@ def test_tiled_padding_path():
 
 
 def test_solver_through_tiled_operator():
-    from blockcg_tpu import solve_sbcgrq
+    from blockcg import solve_sbcgrq
 
     a = laplacian_scipy((20, 20))  # n=400 -> padded to 512
     op = TiledOperator.from_scipy(a, dtype=jnp.float64)
@@ -91,7 +89,7 @@ def test_tiled_rcm_reorder_matches_scipy():
     """RCM reordering (T-K1 scattered path): apply in permuted order through
     the order-conversion helpers reproduces the original matrix action, and
     tile fill improves by an order of magnitude on an unstructured mesh."""
-    from blockcg_tpu.problems import delaunay_laplacian
+    from blockcg.problems import delaunay_laplacian
 
     a = delaunay_laplacian(3000, seed=0)
     plain = TiledOperator.from_scipy(a, dtype=jnp.float64,
@@ -104,8 +102,8 @@ def test_tiled_rcm_reorder_matches_scipy():
 
 
 def test_tiled_bf16_storage():
-    """bf16 tile storage: XLA path and interpret-mode kernel agree with the
-    f64 oracle to bf16 matrix-rounding accuracy; solver dtype stays f32."""
+    """bf16 tile storage: both apply directions agree with the f64 oracle
+    to bf16 matrix-rounding accuracy; solver dtype stays f32."""
     a = _random_sparse_spd(512, 0.02, 9)
     op = TiledOperator.from_scipy(a, dtype=jnp.float32,
                                   tile_dtype=jnp.bfloat16)
@@ -116,8 +114,7 @@ def test_tiled_bf16_storage():
     got = np.asarray(op.matmat(jnp.asarray(X)))
     rel = np.abs(got - want).max() / np.abs(want).max()
     assert rel < 2e-2  # bf16 has ~8 mantissa bits
-    Yt = tiled_spmm_t(op.tiles, op.rt, op.ct, op.first,
-                      jnp.asarray(X.T), interpret=True)
+    Yt = op.matmat_t(jnp.asarray(X.T))
     rel_k = np.abs(np.asarray(Yt).T - want).max() / np.abs(want).max()
     assert rel_k < 2e-2
 
@@ -126,9 +123,9 @@ def test_tiled_rcm_bf16_refined_to_1e10():
     """The full scattered-sparsity story: RCM + bf16 tiles for bandwidth,
     mixed-precision refinement (f64 CSR outer operator) restores 1e-10 —
     the same refinement contract as the f32-matrix case (T-C5)."""
-    from blockcg_tpu import solve_refined
-    from blockcg_tpu.operators import CSROperator
-    from blockcg_tpu.problems import delaunay_laplacian
+    from blockcg import solve_refined
+    from blockcg.operators import CSROperator
+    from blockcg.problems import delaunay_laplacian
 
     a = delaunay_laplacian(2000, seed=2)
     op = TiledOperator.from_scipy(a, dtype=jnp.float32, reorder="rcm",
